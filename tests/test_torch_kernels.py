@@ -1,0 +1,269 @@
+"""repro_torch kernel layer against the JAX reference.
+
+The plain PyTorch versions (``repro_torch.kernels.ref``, the CPU path of
+every wrapper) are held against ``repro.kernels.ref`` on the same numpy
+inputs, and ``gather_rerank`` also against the reference's Pallas kernel in
+interpret mode.  Tolerances:
+
+- direct-form distances (``gather_rerank``): 1e-5 relative — both sides sum
+  the same squared differences, only the summation order may differ;
+- expanded-form distances (``l2_distances``, ``kmeans_assign``): 1e-5 of
+  |q|^2 + |x|^2, the magnitude the form cancels from (torch and XLA run
+  different matrix-product routines);
+- against the Pallas kernel, which scores through the expanded form: the
+  reference test suite's own rtol 2e-4 / atol 2e-3;
+- ids equal throughout (inputs are random, so no exact ties).
+
+The ``test_cuda_*`` cases launch the CUDA kernels and skip (inside the
+``cuda`` fixture) where there is no card; on the card select them with
+``-k cuda``.  ``chip_smoke.py`` runs the same comparisons at the main-path
+shapes.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import rerank as trerank  # noqa: E402
+from repro_torch.kernels.kmeans_assign import kmeans_assign as kmeans_kernel  # noqa: E402
+
+
+def _np(n, d, seed):
+    return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _expanded_atol(q, x):
+    return 1e-5 * (float(np.max(np.sum(q * q, 1))) + float(np.max(np.sum(x * x, 1))))
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# -- plain versions vs repro.kernels.ref --------------------------------------
+
+@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (5, 37, 16), (17, 130, 24)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_exact_distances_match_reference(q, n, d, metric):
+    Q, X = _np(q, d, 1), _np(n, d, 2)
+    fn = jref.l2_distances if metric == "l2" else jref.ip_distances
+    want = np.asarray(fn(jnp.asarray(Q), jnp.asarray(X)))
+    got = ops.exact_distances(_t(Q), _t(X), metric=metric).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=_expanded_atol(Q, X))
+
+
+def test_exact_topk_matches_reference():
+    Q, X = _np(6, 16, 3), _np(200, 16, 4)
+    wd, wi = jops.exact_topk(jnp.asarray(Q), jnp.asarray(X), 7, backend="ref")
+    gd, gi = ops.exact_topk(_t(Q), _t(X), 7)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=_expanded_atol(Q, X))
+
+
+def test_build_pq_luts_match_reference():
+    Q = _np(5, 16, 5)
+    book = _np(4 * 8, 4, 6).reshape(4, 8, 4)
+    for metric in ("l2", "ip"):
+        want = np.asarray(jref.build_pq_luts(jnp.asarray(Q), jnp.asarray(book), metric))
+        got = ref.build_pq_luts(_t(Q), _t(book), metric).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (300, 16, 32), (257, 256, 4), (64, 3, 70)])
+def test_kmeans_assign_matches_reference(n, k, d):
+    X, C = _np(n, d, n), _np(k, d, k + 1)
+    wi, wd = jref.kmeans_assign(jnp.asarray(X), jnp.asarray(C))
+    gi, gd = ops.kmeans_assign(_t(X), _t(C))
+    assert gi.dtype == torch.int32
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=_expanded_atol(X, C))
+
+
+def test_kmeans_assign_ties_go_to_lowest_index():
+    X = np.zeros((3, 4), np.float32)
+    C = np.ones((5, 4), np.float32)  # every centroid equidistant
+    gi, _ = ops.kmeans_assign(_t(X), _t(C))
+    assert gi.tolist() == [0, 0, 0]
+
+
+# -- gather_rerank: plain version vs reference oracle and Pallas kernel -------
+
+def _pool(q, n, p, seed):
+    rng = np.random.default_rng(seed)
+    if p <= n:
+        return np.stack([rng.choice(n, size=p, replace=False) for _ in range(q)]).astype(np.int32)
+    return rng.integers(0, n, size=(q, p)).astype(np.int32)
+
+
+def _assert_rerank_equal(got, want, rtol, atol):
+    gd, gi = (np.asarray(a) for a in got)
+    wd, wi = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(gi.astype(np.int64), wi.astype(np.int64))
+    assert (np.isinf(gd) == np.isinf(wd)).all()
+    np.testing.assert_allclose(
+        np.where(np.isinf(gd), 0.0, gd), np.where(np.isinf(wd), 0.0, wd), rtol=rtol, atol=atol
+    )
+
+
+@pytest.mark.parametrize("q,n,p,d", [(1, 1, 1, 1), (3, 90, 7, 16), (9, 300, 33, 24), (5, 130, 130, 100)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_rerank_matches_reference(q, n, p, d, metric):
+    Q, X = _np(q, d, q), _np(n, d, n + 1)
+    pids = _pool(q, n, p, q * 11 + n)
+    k = min(5, p)
+    want = jops.gather_rerank(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(pids), k,
+                              metric=metric, backend="ref")
+    got = ops.gather_rerank(_t(Q), _t(X), _t(pids), k, metric=metric)
+    _assert_rerank_equal(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_rerank_matches_pallas_interpret(metric):
+    Q, X = _np(6, 32, 1), _np(200, 32, 2)
+    pids = _pool(6, 200, 24, 42)
+    pids[2, 5:] = -1  # one mostly-empty pool
+    want = jops.gather_rerank(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(pids), 10,
+                              metric=metric, backend="pallas")
+    got = ops.gather_rerank(_t(Q), _t(X), _t(pids), 10, metric=metric)
+    _assert_rerank_equal(got, want, rtol=2e-4, atol=2e-3)
+
+
+def _edge_pools():
+    """(name, Q, X, pids, k): the edge cases of tests/test_kernels.py."""
+    rng = np.random.default_rng(9)
+    sent = np.full((4, 8), -1, np.int32)
+    sent[0, :3] = [5, 7, 50]  # 50 == N: out of range
+    sent[1, 0] = 999
+    dup = rng.integers(0, 40, size=(3, 12)).astype(np.int32)
+    dup[:, 6:] = dup[:, :6]
+    return [
+        ("sentinels_and_ids_ge_n", _np(4, 16, 3), _np(50, 16, 4), sent, 8),
+        ("k_exceeds_pool", _np(2, 8, 5), _np(60, 8, 6), np.array([[3, 9, 41], [0, 59, 17]], np.int32), 10),
+        ("k_exceeds_n", _np(2, 8, 5), _np(4, 8, 6), np.array([[0, 1, 2, 3, -1], [3, 2, -1, -1, 1]], np.int32), 9),
+        ("duplicate_ids", _np(3, 16, 7), _np(40, 16, 8), dup, 5),
+    ]
+
+
+@pytest.mark.parametrize("case", _edge_pools(), ids=lambda c: c[0])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_rerank_edge_cases(case, metric):
+    _, Q, X, pids, k = case
+    want = jops.gather_rerank(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(pids), k,
+                              metric=metric, backend="ref")
+    got = ops.gather_rerank(_t(Q), _t(X), _t(pids), k, metric=metric)
+    _assert_rerank_equal(got, want, rtol=1e-5, atol=1e-6)
+    gd, gi = (a.numpy() for a in got)
+    assert gd.shape == (Q.shape[0], k)
+    assert ((gi == -1) == np.isinf(gd)).all()
+    assert (np.diff(np.where(np.isinf(gd), 1e30, gd), axis=1) >= 0).all()
+
+
+# -- wrapper contract ----------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["cuda", "pallas", ""])
+def test_unknown_backend_raises(backend):
+    Q, X = _t(_np(2, 4, 1)), _t(_np(8, 4, 2))
+    with pytest.raises(ValueError):
+        ops.exact_distances(Q, X, backend=backend)
+    with pytest.raises(ValueError):
+        ops.kmeans_assign(X, Q, backend=backend)
+
+
+def test_kernel_wrappers_refuse_mixed_devices():
+    Q, X = _t(_np(2, 4, 1)), _t(_np(8, 4, 2))
+    with pytest.raises(ValueError):
+        ops.on_cpu(Q, X.to("meta"))
+    with pytest.raises(ValueError):
+        trerank.check_cuda("points", X, torch.float32, 2)
+
+
+def test_cpu_tensors_never_build_or_count():
+    """Each CUDA wrapper raises for CPU tensors before it builds or counts;
+    only ``ops`` chooses the plain version for them."""
+    _build.reset_launch_counts()
+    Q, X = _t(_np(3, 8, 1)), _t(_np(20, 8, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trerank.rerank_distances(Q, X)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trerank.gather_rerank(Q, X, _t(np.zeros((3, 4), np.int32)), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmeans_kernel(X, Q)
+    ops.exact_distances(Q, X)
+    ops.gather_rerank(Q, X, _t(np.zeros((3, 4), np.int32)), 2)
+    ops.kmeans_assign(X, Q)
+    assert _build.launch_counts() == {}
+    assert _build._libs == {}
+
+
+def test_import_builds_nothing():
+    """Importing the whole port starts no compiler and loads no library."""
+    code = (
+        "import ctypes, subprocess, torch; subprocess.Popen = ctypes.CDLL = None; "
+        "import repro_torch.runtime.cluster, repro_torch.kernels.ops, repro_torch.serving; "
+        "import repro_torch.kernels._build as b; print(b._libs == {} and b._counts == {})"
+    )
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        env={**os.environ, "PYTHONPATH": src},
+    )
+    assert out.stdout.strip() == "True"
+
+
+def test_every_source_has_a_kernel_note():
+    for name in _build.sources():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "Replaces" in text or "replaces" in text
+        assert "Bound on this card" in text and "Design" in text
+
+
+# -- the CUDA kernels against their plain versions (card only) ----------------
+
+@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (100, 4000, 128), (33, 1000, 70)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_rerank_distances_matches_plain(cuda, q, n, d, metric):
+    Q, X = _t(_np(q, d, 1)).to(cuda), _t(_np(n, d, 2)).to(cuda)
+    got = ops.exact_distances(Q, X, metric=metric)
+    want = ops.exact_distances(Q, X, metric=metric, backend="ref")
+    torch.cuda.synchronize()
+    atol = _expanded_atol(Q.cpu().numpy(), X.cpu().numpy())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("case", _edge_pools(), ids=lambda c: c[0])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_gather_rerank_matches_plain(cuda, case, metric):
+    _, Q, X, pids, k = case
+    args = (_t(Q).to(cuda), _t(X).to(cuda), _t(pids).to(cuda), k)
+    got = ops.gather_rerank(*args, metric=metric)
+    want = ops.gather_rerank(*args, metric=metric, backend="ref")
+    torch.cuda.synchronize()
+    _assert_rerank_equal([a.cpu() for a in got], [a.cpu() for a in want], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k,d", [(1000, 16, 128), (5000, 256, 4), (77, 5, 33)])
+def test_cuda_kmeans_assign_matches_plain(cuda, n, k, d):
+    X, C = _t(_np(n, d, 3)).to(cuda), _t(_np(k, d, 4)).to(cuda)
+    gi, gd = ops.kmeans_assign(X, C)
+    wi, wd = ops.kmeans_assign(X, C, backend="ref")
+    torch.cuda.synchronize()
+    assert (gi == wi).float().mean().item() > 0.999
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=_expanded_atol(X.cpu().numpy(), C.cpu().numpy()))
