@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card, the full-size run
-    python3 chip_smoke.py --n 262144 # a cut deployment (N is the only knob cut)
+    python3 chip_smoke.py --n 262144 --queries 2000 --small-n 32768
+                                     # a cut rehearsal (sizes are the only knobs cut)
 
 Phases, each raising on failure (the script then exits non-zero and prints
 no result line):
@@ -15,15 +16,37 @@ no result line):
    K = 256), timed with CUDA events (median of 30 after warm-up) beside a
    one-call PyTorch yardstick that the port never calls, and beside the
    least time the card could take (``bound_ms``).
+   Phase 2 also holds the masked top-k kernels (exact, exact plane, ADC,
+   ADC plane, unified) at Q = 100, D = 128, k = 40 for the exact ops and
+   k = 160 for the ADC pool and the unified call (m = 32, K = 256), on
+   N = one 250k shard and N = 4,096 (a phase-6 shard), each timed call
+   against its plain version on its own inputs, and at their edge cases (all rows
+   masked, k > N, k > passing rows, ties, ip and l2, ragged shapes,
+   Q = 1, a dedup'd plane with repeated rows, unified with all-exact,
+   all-ADC and mixed flavors, unified against split bit for bit).
 3. The main path: a SIFT1M-shaped deployment (ann-benchmarks
    sift-128-euclidean: N = 1,000,000 x 128 f32, L2, 10,000 queries,
-   k = 10), made from ``--seed`` as a Gaussian mixture, goes through
+   k = 10), made from ``--seed`` as a Gaussian mixture with an int64
+   ``price`` attribute uniform on [0, 10000), goes through
    ``make_local_cluster`` (4 executors, one card), ``create_index`` and 100
-   ``probe(strategy="diskann")`` calls of 100 queries.  The kernel launch
-   counts of exactly that run are read, and recall@10 against
+   ``probe(strategy="diskann")`` calls of 100 queries; recall@10 against
    ``brute_force_topk`` must reach 0.90.
+4. Filtered probes on that index: ``price < 4`` (ExactScan after
+   resolution), ``price < 200`` (MaskedBeam) and ``price < 9000``
+   (PostfilterBeam), 10 ``probe`` calls of 100 queries each, then 10
+   ``probe_batch`` calls mixing 10 distinct predicates; recall@10 against
+   the plain masked op on the card: 0.99 on ExactScan rows, 0.90 on the
+   beam bands.
+5. The fresh tail: 65,536 rows appended without a refresh, 10 unfiltered
+   ``probe`` calls and a heterogeneous filtered ``probe_batch``; every true
+   neighbour that lies in the tail must be returned.
+6. A small-shard catalog (131,072 x 128, 32 shards of 4,096 rows, PQ
+   m = 32): PQScan, the ADC plane and the unified mixed-flavor batch,
+   against ``force_split_flavors`` bit for bit; recall@10 of 0.90.
 
-The line before the last is the ``kernels`` JSON; the last line is
+Every phase from 3 on sets the launch counts to 0 before it runs and reads
+them after; each of the eight kernels must have run on these paths.  The
+line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -49,6 +72,8 @@ sys.path.insert(0, str(HERE / "src"))
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
+MASKED_CU = "src/repro_torch/kernels/csrc/masked_topk.cu"
+MASKED_PY = "src/repro/kernels/masked_topk.py"
 KERNELS = {
     "rerank_distances": ("src/repro_torch/kernels/csrc/rerank.cu", "src/repro/kernels/rerank.py:90"),
     "gather_rerank": ("src/repro_torch/kernels/csrc/rerank.cu", "src/repro/kernels/rerank.py:175"),
@@ -56,7 +81,17 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/kmeans_assign.cu",
         "src/repro/kernels/kmeans_assign.py:71",
     ),
+    "masked_exact_topk": (MASKED_CU, f"{MASKED_PY}:304"),
+    "masked_exact_topk_multi": (MASKED_CU, f"{MASKED_PY}:372"),
+    "masked_pq_topk": (MASKED_CU, f"{MASKED_PY}:406"),
+    "masked_pq_topk_multi": (MASKED_CU, f"{MASKED_PY}:590"),
+    "unified_masked_topk": (MASKED_CU, f"{MASKED_PY}:539"),
 }
+# the unfiltered build and probe of phase 3
+MAIN_KERNELS = ("rerank_distances", "gather_rerank", "kmeans_assign")
+PRICE_MAX = 10_000  # the price attribute is uniform on [0, PRICE_MAX)
+TAIL_ROWS = 65_536  # phase 5: 16 row groups of 4,096
+SMALL_SHARD = 4_096  # planner.EXACT_SCAN_MAX_ROWS: PQScan only up to this size
 
 # Gaussian mixture standing in for SIFT1M: 1,024 components with centers
 # drawn N(0, 1) per coordinate, each with a rank-8 covariance (a random
@@ -336,7 +371,251 @@ def phase_kernels(torch, dev, shard_n: int, seed: int):
     return rows
 
 
+def _check_topk(torch, got, want, atol, what):
+    """Kernel (dists, ids) against the plain version's: distances within
+    ``atol`` (1e-5 relative on top), the same +inf sentinels with id -1,
+    ids equal except on ties within the tolerance."""
+    gd, gi = got
+    wd, wi = want
+    torch.cuda.synchronize()
+    try:
+        err = _close(gd, wd, atol=atol)
+        if not torch.equal(gi < 0, torch.isinf(gd)) or not torch.equal(wi < 0, torch.isinf(wd)):
+            raise AssertionError("(+inf, -1) sentinels do not pair up")
+        finite = wd[torch.isfinite(wd)]
+        top = float(finite.abs().max()) if finite.numel() else 0.0
+        _ids_agree(gi, wi, wd, tol=atol + 1e-5 * top)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+    return err
+
+
+def _masked_case(torch, dev, rng, q, n, d, frac, ints=False, m=32, kc=256):
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    if ints:  # integer values: exact sums, and duplicated rows tie exactly
+        x = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+        x[n // 2 :] = x[: n - n // 2]
+        qs = rng.integers(-2, 3, size=(q, d)).astype(np.float32)
+        luts = rng.integers(0, 4, size=(q, m, kc)).astype(np.float32)
+    else:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        qs = rng.normal(size=(q, d)).astype(np.float32)
+        luts = rng.random((q, m, kc)).astype(np.float32)
+    codes = rng.integers(0, kc, size=(n, m)).astype(np.uint8)
+    plane = rng.random((q, n)) < frac
+    return t(qs), t(x), t(luts), t(codes), t(plane)
+
+
+def _masked_checks(torch, ops, q, x, luts, codes, plane, k, what, metrics=("l2", "ip"), k_adc=None):
+    """Every masked op, kernel against plain, on one input; the unified op
+    also against the split kernels bit for bit.  The exact ops take ``k``,
+    the ADC and unified ops ``k_adc`` (default ``k``), as the main path
+    gives the PQ pool and the unified call a wider k.  Returns max errors."""
+    from repro_torch.kernels import masked_topk as km
+
+    k_adc = k if k_adc is None else k_adc
+    errs = {}
+    atol = 1e-5 * _scale(q, x)
+    n_q = q.shape[0]
+    rows = torch.arange(n_q, dtype=torch.int32, device=q.device)
+    uniq = plane[: max(1, n_q // 2)]
+    idx = torch.as_tensor(np.arange(n_q) % uniq.shape[0]).to(q.device)
+    for metric in metrics:
+        for name, fn, args in (
+            ("masked_exact_topk", ops.masked_exact_topk, (q, x, plane[0], k)),
+            ("masked_exact_topk_multi", ops.masked_exact_topk_multi, (q, x, plane, k)),
+            ("masked_exact_topk_multi", ops.masked_exact_topk_dedup, (q, x, uniq, idx, k)),
+        ):
+            e = _check_topk(torch, fn(*args, metric=metric), fn(*args, metric=metric, backend="ref"),
+                            atol, f"{what} {name} {metric}")
+            errs[name] = max(errs.get(name, 0.0), e)
+    # ADC sums run in the plain version's order: the bound is loose on purpose
+    satol = 1e-5 * float(luts.amax(2).sum(1).max()) if luts.numel() else 0.0
+    for name, fn, args in (
+        ("masked_pq_topk", ops.masked_pq_topk, (luts, codes, plane[0], k_adc)),
+        ("masked_pq_topk_multi", ops.masked_pq_topk_multi, (luts, codes, plane, k_adc)),
+        ("masked_pq_topk_multi", ops.masked_pq_topk_dedup, (luts, codes, uniq, idx, k_adc)),
+    ):
+        e = _check_topk(torch, fn(*args), fn(*args, backend="ref"), satol, f"{what} {name}")
+        errs[name] = max(errs.get(name, 0.0), e)
+    for kind in ("exact", "adc", "mixed"):
+        fl = {"exact": torch.zeros(n_q, dtype=torch.bool), "adc": torch.ones(n_q, dtype=torch.bool),
+              "mixed": torch.arange(n_q) % 2 == 1}[kind].to(q.device)
+        for metric in metrics:
+            args = (q, x, luts, codes, plane, fl, k_adc)
+            got = ops.unified_masked_topk(*args, metric=metric)
+            e = _check_topk(torch, got, ops.unified_masked_topk(*args, metric=metric, backend="ref"),
+                            max(atol, satol), f"{what} unified {kind} {metric}")
+            errs["unified_masked_topk"] = max(errs.get("unified_masked_topk", 0.0), e)
+            ex = km.masked_exact_topk(q, x, plane.to(torch.uint8), rows, k_adc, metric=metric)
+            pq = km.masked_pq_topk(luts, codes, plane.to(torch.uint8), rows, k_adc)
+            for a, b, c in zip(got, ex, pq):
+                if not torch.equal(a, torch.where(fl[:, None], c, b)):
+                    raise AssertionError(f"{what}: unified {kind} {metric} differs from split bit for bit")
+            dd = ops.unified_masked_topk_dedup(q, x, luts, codes, uniq, idx, fl, k_adc, metric=metric)
+            dense = ops.unified_masked_topk(q, x, luts, codes, uniq[idx], fl, k_adc, metric=metric)
+            if not (torch.equal(dd[0], dense[0]) and torch.equal(dd[1], dense[1])):
+                raise AssertionError(f"{what}: unified dedup {kind} {metric} differs from dense")
+    return errs
+
+
+def _masked_bound(q_rows, plane, d, m, kc, k, flavor):
+    """Least time for a masked top-k: each row that passes for some query
+    read once (D f32 for exact rows, m code bytes for ADC rows), the masks
+    and queries read once, the outputs written once; operations 2 D per
+    passing (query, row) cell for exact, m adds for ADC."""
+    cells = plane.sum(1).double()
+    rows = int(plane.any(0).sum())
+    ex, adc = ~flavor, flavor
+    flops = 2 * d * float(cells[ex].sum()) + m * float(cells[adc].sum())
+    nbytes = (4 * d * rows * bool(ex.any()) + m * rows * bool(adc.any()) + plane.shape[1] * q_rows
+              + 4 * d * int(ex.sum()) + 4 * m * kc * int(adc.sum()) + 8 * plane.shape[0] * k)
+    return bound_ms(flops, nbytes)
+
+
+def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
+    """The masked kernels against their plain versions at the main-path
+    shapes (Q = 100 queries on one shard; the filtered probes of phases 4
+    to 6) and at their edge cases; times beside bounds and yardsticks."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed + 2)
+    errs: dict = {}
+
+    def merge(e):
+        for key, v in e.items():
+            errs[key] = max(errs.get(key, 0.0), v)
+
+    # edge cases (a small m K keeps the plain ADC versions cheap)
+    edge = [
+        ("all masked", dict(q=4, n=600, d=16, frac=0.0), 10),
+        ("k > N", dict(q=3, n=7, d=8, frac=1.0), 12),
+        ("k > passing", dict(q=4, n=700, d=16, frac=0.005), 10),
+        ("ties", dict(q=4, n=400, d=8, frac=0.8, ints=True), 12),
+        ("ragged Q/N/D", dict(q=3, n=1301, d=33, frac=0.6), 9),
+        ("Q = 1", dict(q=1, n=1000, d=128, frac=0.5), 40),
+        ("k > chunk", dict(q=3, n=1300, d=8, frac=0.7), 600),
+        ("plane, repeated rows", dict(q=37, n=5000, d=64, frac=0.3), 40),
+    ]
+    for what, kw, k in edge:
+        q, x, luts, codes, plane = _masked_case(torch, dev, rng, m=8, kc=16, **kw)
+        merge(_masked_checks(torch, ops, q, x, luts, codes, plane, k, what))
+    log(f"masked kernels: {len(edge)} edge cases match their plain versions")
+
+    # main-path shapes: Q = 100 queries, D = 128, k = 40 exact; the ADC
+    # pool and the unified call at k = 160 (m = 32, K = 256).  On one
+    # 250k-row shard (phases 4 and 5) and on one 4,096-row shard (phase 6,
+    # where PQScan and the unified kernel run)
+    Q, D, M, KC = 100, 128, 32, 256
+    thresholds = (2, 3, 4, 5, 6, 100, 325, 550, 775, 1000)
+    small_n = 4096
+    q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, small_n, D, 0.0, m=M, kc=KC)
+    price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=small_n)).to(dev)
+    plane = torch.stack([price < 3000 + 500 * (i % 8) for i in range(Q)])
+    merge(_masked_checks(torch, ops, q, x, luts, codes, plane, 40, f"main shape N={small_n}",
+                         metrics=("l2",), k_adc=160))
+
+    q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, shard_n, D, 0.0, m=M, kc=KC)
+    price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=shard_n)).to(dev)
+    # masks as the filtered phases make them: price < t for ten thresholds
+    uniq = torch.stack([price < t for t in thresholds])
+    wide = price < 5000
+    idx = torch.as_tensor(np.arange(Q) % uniq.shape[0]).to(dev)
+    flavor = torch.arange(Q, device=dev) % 2 == 1
+    none, allq = torch.zeros(Q, dtype=torch.bool, device=dev), torch.ones(Q, dtype=torch.bool, device=dev)
+    merge(_masked_checks(torch, ops, q, x, luts, codes, uniq[idx], 40, f"main shape N={shard_n}",
+                         metrics=("l2",), k_adc=160))
+    atol = 1e-5 * _scale(q, x)
+    satol = 1e-5 * float(luts.amax(2).sum(1).max())
+
+    def lib_exact(mask):
+        q2 = (q * q).sum(1, keepdim=True)
+        x2 = (x * x).sum(1)[None, :]
+        d = torch.addmm(q2 + x2, q, x.T, alpha=-2.0).masked_fill_(~mask, float("inf"))
+        return torch.topk(d, 40, dim=1, largest=False)
+
+    lg = codes.T.long()[None].expand(Q, M, shard_n)
+
+    def lib_adc(mask, k):
+        d = torch.gather(luts, 2, lg).sum(1).masked_fill_(~mask, float("inf"))
+        return torch.topk(d, k, dim=1, largest=False)
+
+    plane_bcast = wide[None, :].expand(Q, -1)
+    cases = {
+        "masked_exact_topk": (
+            lambda b: ops.masked_exact_topk(q, x, wide, 40, backend=b),
+            lambda: lib_exact(wide), (1, plane_bcast, none, 40), atol,
+            "Q=100 N=%d D=128 k=40 mask 50%%"),
+        "masked_exact_topk_multi": (
+            lambda b: ops.masked_exact_topk_dedup(q, x, uniq, idx, 40, backend=b),
+            lambda: lib_exact(uniq[idx]), (uniq.shape[0], uniq[idx], none, 40), atol,
+            "Q=100 N=%d D=128 k=40 plane of 10 price masks"),
+        "masked_pq_topk": (
+            lambda b: ops.masked_pq_topk(luts, codes, wide, 160, backend=b),
+            lambda: lib_adc(wide, 160), (1, plane_bcast, allq, 160), satol,
+            "Q=100 N=%d m=32 K=256 k=160 mask 50%%"),
+        "masked_pq_topk_multi": (
+            lambda b: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, 160, backend=b),
+            lambda: lib_adc(uniq[idx], 160), (uniq.shape[0], uniq[idx], allq, 160), satol,
+            "Q=100 N=%d m=32 K=256 k=160 plane of 10 price masks"),
+        "unified_masked_topk": (
+            lambda b: ops.unified_masked_topk_dedup(q, x, luts, codes, uniq, idx, flavor, 160, backend=b),
+            None, (uniq.shape[0], uniq[idx], flavor, 160), max(atol, satol),
+            "Q=100 (50 exact, 50 ADC) N=%d D=128 m=32 K=256 k=160 plane of 10 price masks"),
+    }
+    rows = {}
+    for name, (fn, lib, (q_rows, plane, fl, k), tol, shape) in cases.items():
+        # the error reported beside the time is the timed call's own
+        err = _check_topk(torch, fn("auto"), fn("ref"), tol, f"timed {name}")
+        ms = time_ms(torch, lambda: fn("auto"))
+        plain = time_ms(torch, lambda: fn("ref"), reps=5, warmup=1)
+        lib_ms = time_ms(torch, lib, reps=5, warmup=1) if lib is not None else None
+        b, by = _masked_bound(q_rows, plane, D, M, KC, k, fl)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                          bound_ms=b, bound_by=by, shape=shape % shard_n)
+        log(f"{name} [{rows[name]['shape']}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b:.5f} ms ({by}), "
+            f"max abs err {err:.3g} (over every check of phase 2: {errs[name]:.3g})")
+    del lg
+    return rows
+
+
 # -- phase 3 -------------------------------------------------------------------
+
+def hit_rows(table, hits, rows_per_group: int, k: int = 10, expect=None) -> np.ndarray:
+    """(Q, k) global row indices of each query's hits (files in append
+    order; -1 pads), after checking each query got ``expect[q]`` (default
+    k) finite, ascending hits."""
+    starts, base = {}, 0
+    for f in table.current_files():
+        starts[f.path] = base
+        base += f.record_count
+    got = np.full((len(hits), k), -1, np.int64)
+    for qi, hs in enumerate(hits):
+        want = k if expect is None else int(expect[qi])
+        if len(hs) != want or not all(np.isfinite(h.distance) for h in hs):
+            raise AssertionError(f"query {qi}: {len(hs)} hits (expected {want}) or non-finite distances")
+        if any(a.distance > b.distance for a, b in zip(hs, hs[1:])):
+            raise AssertionError(f"query {qi}: hits not ascending")
+        got[qi, : len(hs)] = [starts[h.file_path] + h.row_group * rows_per_group + h.row_offset
+                              for h in hs]
+    return got
+
+
+def _expect(price, thr, k=10):
+    """Hits each query must get: k, or fewer when fewer rows pass."""
+    thr = np.asarray(thr)
+    passing = {int(t): int((price < t).sum()) for t in np.unique(thr)}
+    return np.array([min(k, passing[int(t)]) for t in thr.reshape(-1)])
+
+
+def _passes(price, got, thr) -> bool:
+    ok = got < 0
+    safe = np.where(ok, 0, got)
+    return bool((ok | (price[safe] < np.asarray(thr).reshape(-1, 1))).all())
+
 
 def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
     from repro_torch.core.vamana import brute_force_topk
@@ -347,18 +626,22 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
 
     rng = np.random.default_rng(seed)
     t0 = time.time()
-    data = mixture(n + n_queries, 128, rng)
-    X, Q = data[:n], data[n:]
-    log(f"data: N={n} x 128 f32 + {n_queries} queries, Gaussian mixture of {MIX_COMPONENTS} "
-        f"components (centers N(0,{MIX_CENTER_SCALE}^2), rank-{MIX_RANK} covariance, "
-        f"noise {MIX_NOISE}), {time.time() - t0:.1f} s")
+    # the base rows, the queries and the rows phase 5 appends, one mixture
+    data = mixture(n + n_queries + TAIL_ROWS, 128, rng)
+    X, Q, T = data[:n], data[n : n + n_queries], data[n + n_queries :]
+    price = rng.integers(0, PRICE_MAX, size=n + TAIL_ROWS).astype(np.int64)
+    log(f"data: N={n} x 128 f32 + {n_queries} queries + {TAIL_ROWS} tail rows, Gaussian mixture "
+        f"of {MIX_COMPONENTS} components (centers N(0,{MIX_CENTER_SCALE}^2), rank-{MIX_RANK} "
+        f"covariance, noise {MIX_NOISE}), int64 price uniform on [0, {PRICE_MAX}), "
+        f"{time.time() - t0:.1f} s")
 
     cluster = make_local_cluster(workdir, num_executors=4)
     table = LakehouseTable(cluster.catalog, "sift")
     table.create(dim=128)
     rows_per_group = 4096
     t0 = time.time()
-    table.append_vectors(X, num_files=16, rows_per_group=rows_per_group)
+    table.append_vectors(X, num_files=16, rows_per_group=rows_per_group,
+                         attributes={"price": price[:n]})
     log(f"table: 16 files written in {time.time() - t0:.1f} s")
     # build_batch 1024 (IndexConfig's default is 128): an existing user
     # setting that cuts a 250k-point shard's build to ~245 batches a pass
@@ -391,28 +674,18 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
     torch.cuda.synchronize()
     probe_s = time.time() - t0
     probe_launches = _build.launch_counts()
-    launches = {k: build_launches.get(k, 0) + probe_launches.get(k, 0) for k in KERNELS}
+    launches = {k: build_launches.get(k, 0) + probe_launches.get(k, 0) for k in MAIN_KERNELS}
     log(f"probe: {calls} calls x 100 queries in {probe_s:.1f} s = {calls * 100 / probe_s:.1f} QPS; "
         f"stage A {stage_a:.1f} s, stage B+C {stage_b:.1f} s")
     log(f"launches: build {build_launches}, probe {probe_launches} "
         f"(per probe call {({k: v / calls for k, v in probe_launches.items()})})")
-    for name in KERNELS:
+    for name in MAIN_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
     # recall@10 against brute force (the rerank_distances kernel, 1,000
     # queries a chunk); hits map back to row indices through the file layout
-    starts, base = {}, 0
-    for f in table.current_files():
-        starts[f.path] = base
-        base += f.record_count
-    got = np.full((len(hits), 10), -1, np.int64)
-    for qi, hs in enumerate(hits):
-        if len(hs) != 10 or not all(np.isfinite(h.distance) for h in hs):
-            raise AssertionError(f"query {qi}: {len(hs)} hits or non-finite distances")
-        if any(a.distance > b.distance for a, b in zip(hs, hs[1:])):
-            raise AssertionError(f"query {qi}: hits not ascending")
-        got[qi] = [starts[h.file_path] + h.row_group * rows_per_group + h.row_offset for h in hs]
+    got = hit_rows(table, hits, rows_per_group)
     truth_d = np.empty((len(hits), 10), np.float32)
     truth = np.empty((len(hits), 10), np.int64)
     t0 = time.time()
@@ -429,7 +702,303 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
         raise AssertionError(f"hit distances disagree with exact distances by {d_err}")
     if recall < 0.90:
         raise AssertionError(f"recall@10 {recall:.4f} < 0.90")
-    return launches, dict(build_s=build_s, probe_s=probe_s, recall=recall)
+    ctx = dict(cluster=cluster, table=table, X=X, Q=Q, T=T, price=price,
+               rows_per_group=rows_per_group, device=cluster.device)
+    return launches, dict(build_s=build_s, probe_s=probe_s, recall=recall), ctx
+
+
+# -- phases 4 to 6 -----------------------------------------------------------------
+
+def _truth(torch, ops, vecs_dev, queries, unique_masks_dev, row_index, k=10, chunk=100):
+    """Filtered ground truth: the plain masked op on the card (each query
+    under its own mask row), chunk by chunk."""
+    out = np.empty((queries.shape[0], k), np.int64)
+    for s in range(0, queries.shape[0], chunk):
+        q = torch.as_tensor(queries[s : s + chunk]).to(vecs_dev.device)
+        idx = torch.as_tensor(row_index[s : s + chunk]).to(vecs_dev.device)
+        _, ids = ops.masked_exact_topk_dedup(q, vecs_dev, unique_masks_dev, idx, k, backend="ref")
+        out[s : s + chunk] = ids.cpu().numpy()
+    return out
+
+
+def _recall(got, truth) -> float:
+    per = [len(set(g) & set(t[t >= 0])) / max(int((t >= 0).sum()), 1) for g, t in zip(got, truth)]
+    return float(np.mean(per))
+
+
+def _run(torch, what, calls):
+    """Run ``calls`` (callables returning ProbeReports) with the launch
+    counts set to 0 before and read after; returns (reports, seconds,
+    launches)."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    reports = [c() for c in calls]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = _build.launch_counts()
+    r0 = reports[0]
+    if hasattr(r0, "plan"):
+        log(f"{what}: {len(calls)} calls in {secs:.2f} s; plan "
+            f"{r0.plan.summary() if r0.plan else None}; kernel_dispatches "
+            f"{sum(r.kernel_dispatches for r in reports)}, masked_beam rows "
+            f"{sum(r.masked_beam_rows for r in reports)} / fallbacks "
+            f"{sum(r.masked_beam_fallbacks for r in reports)}; launches {launches}")
+    else:
+        log(f"{what}: {secs:.2f} s; launches {launches}")
+    return reports, secs, launches
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _need(launches, names, what):
+    for name in names:
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"{what}: kernel {name} was not launched")
+
+
+TIGHT = [2, 3, 4, 5, 6]  # price < t: 0.02-0.06 %, ExactScan once resolved
+WIDE = [100, 325, 550, 775, 1000]  # price < t: 1-10 %, MaskedBeam on 250k-row shards
+
+
+def phase_filtered(torch, ctx, n_calls: int):
+    """Filtered probes on the phase-3 index: one predicate per band, then
+    heterogeneous batches."""
+    from repro_torch.kernels import ops
+
+    coord, table = ctx["cluster"].coordinator, ctx["table"]
+    X, Q, price, rpg = ctx["X"], ctx["Q"], ctx["price"][: ctx["X"].shape[0]], ctx["rows_per_group"]
+    dev = ctx["device"]
+    x_dev = torch.as_tensor(X).to(dev)
+    price_dev = torch.as_tensor(price).to(dev)
+    total, stats = {}, {}
+    nq = n_calls * 100
+    bands = [("price < 4", "exact", 0.99), ("price < 200", "mbeam", 0.90),
+             ("price < 9000", "postfilter", 0.90)]
+    for where, band, floor in bands:
+        thr = int(where.split("<")[1])
+        reps, secs, launches = _run(torch, f"phase 4 probe(filter={where!r})", [
+            (lambda c=c: coord.probe("sift", Q[c * 100 : (c + 1) * 100], 10, strategy="diskann",
+                                     filter=where)) for c in range(n_calls)])
+        _add(total, launches)
+        hits = [h for r in reps for h in r.hits]
+        got = hit_rows(table, hits, rpg, expect=_expect(price, np.full(nq, thr)))
+        if not _passes(price, got, np.full(nq, thr)):
+            raise AssertionError(f"{where}: a hit fails the predicate")
+        truth = _truth(torch, ops, x_dev, Q[:nq], (price_dev < thr)[None], np.zeros(nq, np.int64))
+        recall = _recall(got, truth)
+        summary = reps[0].plan.summary()
+        mb_rows = sum(r.masked_beam_rows for r in reps)
+        fb = sum(r.masked_beam_fallbacks for r in reps)
+        log(f"  {where}: recall@10 {recall:.4f} over {nq} queries, {nq / secs:.1f} QPS, "
+            f"plan {summary}, passing rows {int((price < thr).sum())}")
+        if band == "exact":
+            _need(launches, ["masked_exact_topk"], where)
+            if mb_rows:
+                raise AssertionError(f"{where}: expected ExactScan after resolution, got MaskedBeam rows")
+        elif band == "mbeam":
+            if "mbeam" not in summary or mb_rows == 0:
+                raise AssertionError(f"{where}: MaskedBeam did not run ({summary}, rows {mb_rows})")
+        elif "postfilter" not in summary:
+            raise AssertionError(f"{where}: expected PostfilterBeam, plan {summary}")
+        if recall < floor:
+            raise AssertionError(f"{where}: recall@10 {recall:.4f} < {floor}")
+        stats[where] = dict(seconds=secs, recall=recall, plan=summary, mbeam_rows=mb_rows,
+                            mbeam_fallbacks=fb)
+
+    # heterogeneous batches: ten distinct predicates, query i under preds[i % 10]
+    preds = [f"price < {t}" for t in TIGHT] + [f"price < {t}" for t in WIDE]
+    thr = np.array(TIGHT + WIDE)
+    row_index = np.arange(nq) % len(preds)
+    reps, secs, launches = _run(torch, "phase 4 probe_batch(10 predicates)", [
+        (lambda c=c: coord.probe_batch("sift", Q[c * 100 : (c + 1) * 100], 10, strategy="diskann",
+                                       filter=[preds[i % len(preds)] for i in range(100)]))
+        for c in range(n_calls)])
+    _add(total, launches)
+    got = hit_rows(table, [h for r in reps for h in r.hits], rpg,
+                   expect=_expect(price, thr[row_index]))
+    if not _passes(price, got, thr[row_index]):
+        raise AssertionError("probe_batch: a hit fails its query's predicate")
+    uniq = torch.stack([price_dev < int(t) for t in thr])
+    truth = _truth(torch, ops, x_dev, Q[:nq], uniq, row_index)
+    tight = row_index < len(TIGHT)
+    r_tight, r_wide = _recall(got[tight], truth[tight]), _recall(got[~tight], truth[~tight])
+    mb_rows = sum(r.masked_beam_rows for r in reps)
+    log(f"  probe_batch: recall@10 {r_tight:.4f} (ExactScan rows), {r_wide:.4f} (MaskedBeam rows), "
+        f"{nq / secs:.1f} QPS, plan {reps[0].plan.summary()}")
+    _need(launches, ["masked_exact_topk_multi"], "probe_batch")
+    if mb_rows == 0:
+        raise AssertionError("probe_batch: no MaskedBeam rows")
+    if r_tight < 0.99 or r_wide < 0.90:
+        raise AssertionError(f"probe_batch recall {r_tight:.4f} / {r_wide:.4f} under 0.99 / 0.90")
+    stats["probe_batch"] = dict(seconds=secs, recall_exact=r_tight, recall_beam=r_wide,
+                                mbeam_rows=mb_rows,
+                                mbeam_fallbacks=sum(r.masked_beam_fallbacks for r in reps))
+    del x_dev
+    return total, stats, (preds, thr)
+
+
+def phase_tail(torch, ctx, n_calls: int, preds_thr):
+    """Append TAIL_ROWS rows without a refresh; unfiltered probes and one
+    heterogeneous filtered batch must return every true neighbour that lies
+    in the tail."""
+    from repro_torch.core.vamana import brute_force_topk
+    from repro_torch.kernels import ops
+
+    coord, table = ctx["cluster"].coordinator, ctx["table"]
+    X, Q, T, price, rpg = ctx["X"], ctx["Q"], ctx["T"], ctx["price"], ctx["rows_per_group"]
+    n = X.shape[0]
+    t0 = time.time()
+    table.append_vectors(T, num_files=4, rows_per_group=rpg, file_prefix="tail",
+                         attributes={"price": price[n:]})
+    log(f"phase 5: appended {T.shape[0]} rows ({T.shape[0] // rpg} row groups) in "
+        f"{time.time() - t0:.1f} s, no refresh")
+    XT = np.concatenate([X, T])
+    nq = n_calls * 100
+    reps, secs, launches = _run(torch, "phase 5 probe (fresh tail)", [
+        (lambda c=c: coord.probe("sift", Q[c * 100 : (c + 1) * 100], 10, strategy="diskann"))
+        for c in range(n_calls)])
+    total = dict(launches)
+    for r in reps:
+        if r.tail_rows != T.shape[0] or r.unindexed_rows != 0:
+            raise AssertionError(f"tail_rows {r.tail_rows}, unindexed_rows {r.unindexed_rows}")
+    got = hit_rows(table, [h for r in reps for h in r.hits], rpg)
+    truth = brute_force_topk(XT, Q[:nq], 10, device=ctx["device"])[1]
+    in_tail = truth >= n
+    missed = sum(int(np.sum(~np.isin(t[m], g))) for g, t, m in zip(got, truth, in_tail))
+    log(f"  tail probe: {int(in_tail.sum())} true neighbours in the tail, {missed} missed; "
+        f"recall@10 {_recall(got, truth):.4f}; plan {reps[0].plan.summary()}")
+    _need(launches, ["masked_exact_topk"], "tail probe")
+    if missed:
+        raise AssertionError(f"{missed} true neighbours in the tail were not returned")
+    tail_in = int(in_tail.sum())
+
+    preds, thr = preds_thr
+    row_index = np.arange(100) % len(preds)
+    reps, secs_b, launches = _run(torch, "phase 5 probe_batch (fresh tail, 10 predicates)", [
+        lambda: coord.probe_batch("sift", Q[:100], 10, strategy="diskann",
+                                  filter=[preds[i] for i in row_index])])
+    _add(total, launches)
+    r = reps[0]
+    if r.tail_rows != T.shape[0] or r.unindexed_rows != 0:
+        raise AssertionError(f"tail_rows {r.tail_rows}, unindexed_rows {r.unindexed_rows}")
+    got = hit_rows(table, r.hits, rpg, expect=_expect(price, thr[row_index]))
+    dev = ctx["device"]
+    price_dev = torch.as_tensor(price).to(dev)
+    uniq = torch.stack([price_dev < int(t) for t in thr])
+    truth = _truth(torch, ops, torch.as_tensor(XT).to(dev), Q[:100], uniq, row_index)
+    in_tail = truth >= n
+    missed = sum(int(np.sum(~np.isin(t[m], g))) for g, t, m in zip(got, truth, in_tail))
+    log(f"  tail probe_batch: {int(in_tail.sum())} true filtered neighbours in the tail, {missed} "
+        f"missed; plan {r.plan.summary()}")
+    _need(launches, ["masked_exact_topk_multi"], "tail probe_batch")
+    if missed:
+        raise AssertionError(f"{missed} true filtered neighbours in the tail were not returned")
+    return total, dict(seconds=secs + secs_b, tail_neighbours=tail_in,
+                       tail_filtered_neighbours=int(in_tail.sum()))
+
+
+def phase_small_shards(torch, ctx, small_n: int, seed: int):
+    """A second table cut into shards of at most SMALL_SHARD rows, where the
+    planner plans PQScan: the masked ADC kernels, the ADC plane and the
+    unified mixed-flavor batch, against force_split_flavors."""
+    from repro_torch.core.blobs import ROUTING_BLOB_TYPE, decode_routing_blob
+    from repro_torch.kernels import ops
+    from repro_torch.lakehouse.table import LakehouseTable
+    from repro_torch.runtime.coordinator import IndexConfig
+
+    cluster = ctx["cluster"]
+    coord = cluster.coordinator
+    rng = np.random.default_rng(seed + 6)
+    data = mixture(small_n + 100, 128, rng)
+    X2, Q2 = data[:small_n], data[small_n:]
+    price = rng.integers(0, PRICE_MAX, size=small_n).astype(np.int64)
+    shards = -(-small_n // SMALL_SHARD)
+    t2 = LakehouseTable(cluster.catalog, "small")
+    t2.create(dim=128)
+    t2.append_vectors(X2, num_files=shards, rows_per_group=SMALL_SHARD, attributes={"price": price})
+    cfg = IndexConfig(name="small_idx", R=64, L=100, alpha=1.2, pq_m=32, pq_nbits=8,
+                      num_shards=shards, partition_mode="file", build_batch=BUILD_BATCH)
+    reps, build_s, total = _run(torch, "phase 6 create_index (small shards)",
+                                [lambda: coord.create_index("small", cfg)])
+    _meta, _snap, _path, reader = coord._resolve_index("small", None, None)
+    routing = decode_routing_blob(reader.read_first(ROUTING_BLOB_TYPE))
+    sizes = [s.vector_count for s in routing.shards]
+    log(f"  {len(sizes)} shards of {min(sizes)}-{max(sizes)} rows, {build_s:.1f} s")
+    if max(sizes) > SMALL_SHARD or sum(sizes) != small_n:
+        raise AssertionError(f"shard sizes {sizes} exceed {SMALL_SHARD} or miss rows")
+
+    dev = ctx["device"]
+    x_dev, price_dev = torch.as_tensor(X2).to(dev), torch.as_tensor(price).to(dev)
+    stats = dict(build_s=build_s, shards=len(sizes))
+
+    def check(what, report, thr, floor=0.90):
+        got = hit_rows(t2, report.hits, SMALL_SHARD, expect=_expect(price, thr))
+        if not _passes(price, got, thr):
+            raise AssertionError(f"{what}: a hit fails its predicate")
+        uniq, row_index = np.unique(thr, return_inverse=True)
+        truth = _truth(torch, ops, x_dev, Q2, torch.stack([price_dev < int(t) for t in uniq]),
+                       row_index.reshape(-1))
+        recall = _recall(got, truth)
+        log(f"  {what}: recall@10 {recall:.4f}, plan {report.plan.summary()}, kernel_dispatches "
+            f"{report.kernel_dispatches} over {report.probe_fragments} fragments")
+        if recall < floor:
+            raise AssertionError(f"{what}: recall@10 {recall:.4f} < {floor}")
+        stats[what] = recall
+
+    reps, secs, launches = _run(torch, "phase 6 probe(filter='price < 3000')", [
+        lambda: coord.probe("small", Q2, 10, strategy="diskann", filter="price < 3000")])
+    _add(total, launches)
+    _need(launches, ["masked_pq_topk", "gather_rerank"], "PQScan probe")
+    check("PQScan probe", reps[0], np.full(100, 3000))
+
+    wide = [3000 + 500 * j for j in range(8)]
+    thr = np.array([wide[i % 8] for i in range(100)])
+    reps, secs, launches = _run(torch, "phase 6 probe_batch(8 PQScan predicates)", [
+        lambda: coord.probe_batch("small", Q2, 10, strategy="diskann",
+                                  filter=[f"price < {t}" for t in thr])])
+    _add(total, launches)
+    _need(launches, ["masked_pq_topk_multi"], "PQScan plane")
+    check("PQScan plane batch", reps[0], thr)
+
+    thr = np.array([20 if i % 2 == 0 else wide[(i // 2) % 8] for i in range(100)])
+    filters = [f"price < {t}" for t in thr]
+    reps, secs, launches = _run(torch, "phase 6 probe_batch(mixed flavors, unified)", [
+        lambda: coord.probe_batch("small", Q2, 10, strategy="diskann", filter=filters)])
+    _add(total, launches)
+    uni = reps[0]
+    _need(launches, ["unified_masked_topk"], "mixed-flavor batch")
+    if uni.kernel_dispatches != uni.probe_fragments:
+        raise AssertionError(f"unified: {uni.kernel_dispatches} dispatches over "
+                             f"{uni.probe_fragments} fragments")
+    check("mixed-flavor batch", uni, thr)
+    for ex in cluster.executors:
+        ex.force_split_flavors = True
+    try:
+        reps, secs, launches = _run(torch, "phase 6 probe_batch(mixed flavors, split)", [
+            lambda: coord.probe_batch("small", Q2, 10, strategy="diskann", filter=filters)])
+    finally:
+        for ex in cluster.executors:
+            ex.force_split_flavors = False
+    _add(total, launches)
+    split = reps[0]
+    if split.kernel_dispatches != 2 * split.probe_fragments:
+        raise AssertionError(f"split: {split.kernel_dispatches} dispatches over "
+                             f"{split.probe_fragments} fragments")
+    same = all(
+        [(h.file_path, h.row_group, h.row_offset, h.distance) for h in a]
+        == [(h.file_path, h.row_group, h.row_offset, h.distance) for h in b]
+        for a, b in zip(uni.hits, split.hits)
+    )
+    log(f"  unified vs split: hits bit-identical {same}")
+    if not same:
+        raise AssertionError("unified and split-flavor hits differ")
+    return total, stats
 
 
 def main() -> int:
@@ -437,6 +1006,10 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--filtered-calls", type=int, default=10,
+                    help="probe calls of 100 queries per filtered row (phases 4 and 5)")
+    ap.add_argument("--small-n", type=int, default=131_072,
+                    help="rows of the small-shard catalog of phase 6")
     args = ap.parse_args()
 
     import torch
@@ -448,15 +1021,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.time()
-    smi = phase_environment(torch)
-    rows = phase_kernels(torch, dev, args.n // 4, args.seed)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        phase_s[name] = time.time() - t0
+        return out
+
+    smi = timed("1 environment + build", phase_environment, torch)
+    rows = timed("2 kernels", phase_kernels, torch, dev, args.n // 4, args.seed)
+    rows.update(timed("2 masked kernels", phase_masked_kernels, torch, dev, args.n // 4, args.seed))
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches, main = phase_main_path(
-            torch, args.n, args.queries, args.seed, workdir
+        launches, main, ctx = timed(
+            "3 main path", phase_main_path, torch, args.n, args.queries, args.seed, workdir
         )
+        per_phase = {"3": dict(launches)}
+        got, _stats, preds = timed("4 filtered", phase_filtered, torch, ctx, args.filtered_calls)
+        per_phase["4"] = got
+        got, _stats = timed("5 fresh tail", phase_tail, torch, ctx, args.filtered_calls, preds)
+        per_phase["5"] = got
+        got, _stats = timed("6 small shards", phase_small_shards, torch, ctx, args.small_n, args.seed)
+        per_phase["6"] = got
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}
+    log(f"launches by phase: {per_phase}")
+    log(f"phase seconds: { {k: round(v, 2) for k, v in phase_s.items()} }")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched on phases 3-6")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

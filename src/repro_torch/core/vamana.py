@@ -1,6 +1,6 @@
 """Vamana / DiskANN graph index (paper §2.2, §5–§7) — PyTorch port.
 
-Port of ``repro/core/vamana.py``, unfiltered part.  The graph keeps the
+Port of ``repro/core/vamana.py`` without ``insert_batch``.  The graph keeps the
 reference's layout: a dense padded adjacency ``(cap, R)`` (-1 pad), host
 numpy arrays as the state of record, invalid ids == ``cap`` inside the
 search.  The jitted jnp primitives become batched torch code on
@@ -8,6 +8,8 @@ search.  The jitted jnp primitives become batched torch code on
 
 - :func:`_beam_search` — the ``lax.while_loop`` becomes a Python loop (see
   its note on how often the frontier is checked);
+- :class:`_MaskedBeam` — the same traversal buffering every neighbour it
+  evaluates, for the single admit pass of the masked search;
 - :func:`_robust_prune` — the vectorized α-RNG prune;
 - the reverse-edge scatter (the reference's per-edge Python loop) is
   vectorized to the same result, see :func:`_reverse_edge_scatter`.
@@ -20,8 +22,9 @@ Entry points: :func:`build_vamana`, :meth:`VamanaGraph.search`,
 :meth:`VamanaGraph.search_pq` (PQ traversal + exact rerank of pool ∪
 visited through the ``gather_rerank`` kernel), :meth:`VamanaGraph.tombstone`,
 :func:`graph_from_arrays` (carry a reference graph into the port),
-:func:`brute_force_topk`, :func:`recall_at_k`.  ``search_masked`` and
-``insert_batch`` arrive with the filtered and refresh slices.
+:meth:`VamanaGraph.search_masked` (the predicate-aware traversal of
+filtered probes), :func:`brute_force_topk`, :func:`recall_at_k`.
+``insert_batch`` arrives with the refresh slice.
 """
 
 from __future__ import annotations
@@ -170,6 +173,7 @@ class _Beam:
         nbrs = self.adjacency[best_id[:, 0].clamp(0, cap - 1)]  # (B, R)
         nbrs = torch.where((nbrs >= 0) & active, nbrs, cap)
         nd = self.dist_to(nbrs)
+        self._offer(nbrs, nd)
         # merge pool + neighbors; sort by key (id asc, expanded first) to
         # dedupe, then keep the top-L by distance (both sorts stable)
         cat_keys, order = torch.sort(
@@ -183,6 +187,9 @@ class _Beam:
         order = torch.sort(cat_d, dim=1, stable=True).indices[:, : self.L]
         self.keys.copy_(cat_keys.gather(1, order))
         self.dists.copy_(cat_d.gather(1, order))
+
+    def _offer(self, nbrs: torch.Tensor, nd: torch.Tensor) -> None:
+        """Hook for every (B, R) neighbour slab a step evaluates."""
 
     def _capture(self) -> None:
         """Record ``FRONTIER_CHECK_EVERY`` steps as one CUDA graph (after a
@@ -221,6 +228,61 @@ class _Beam:
             self.vis_ids.clone(),
             self.vis_dists.clone(),
         )
+
+
+class _MaskedBeam(_Beam):
+    """:class:`_Beam` that also buffers every (id, dist) the traversal
+    evaluates, one (B, R) slab per iteration written at the device-side
+    iteration counter, for the single admit pass after the loop (the
+    reference's ``_masked_beam_search``).  The traversal itself is the
+    unmasked one: masked nodes expand and steer the pool.  The extra
+    iterations past the last frontier (see :class:`_Beam`) write their slab
+    of an inactive row as (cap, +inf), which is what the reference's buffer
+    holds there.  On a card the slab writes are part of the captured graph.
+    """
+
+    def __init__(self, vectors, adjacency, n_valid, entry, q_shape, L, max_iters, metric, use_pq):
+        B, R = q_shape[0], adjacency.shape[1]
+        dev = vectors.device
+        self.cand_ids = torch.empty((B, max_iters, R), dtype=torch.int64, device=dev)
+        self.cand_dists = torch.empty((B, max_iters, R), dtype=torch.float32, device=dev)
+        super().__init__(vectors, adjacency, n_valid, entry, q_shape, L, max_iters, metric, use_pq)
+
+    def _reset(self) -> None:
+        super()._reset()
+        self.cand_ids.fill_(self.cap)
+        self.cand_dists.fill_(INF)
+
+    def _offer(self, nbrs: torch.Tensor, nd: torch.Tensor) -> None:
+        # the step has already advanced ``it``: this slab is iteration it - 1
+        at = (self.it - 1)[:, :, None].expand(-1, 1, nbrs.shape[1])
+        self.cand_ids.scatter_(1, at, nbrs[:, None, :])
+        self.cand_dists.scatter_(1, at, nd[:, None, :])
+
+    def run_masked(self, queries: torch.Tensor, masks: torch.Tensor, mask_idx: torch.Tensor, k_res: int):
+        """Traverse, then admit: seeds and every buffered offer, gated by
+        the query's mask row (``masks`` (m, cap) bool, ``mask_idx`` (B,)),
+        deduped by id, top-``k_res`` by distance (stable sorts, as the
+        reference).  Returns (res_ids (B, k_res), res_dists (B, k_res),
+        vis_ids (B, max_iters)); unfilled slots hold (cap, +inf)."""
+        _ids, _dists, vis_ids, _vd = self.run(queries)
+        cap = self.cap
+        B = self.q.shape[0]
+        seeds = self.seeds.expand(B, self.n_seeds)
+        all_ids = torch.cat([seeds, self.cand_ids.reshape(B, -1)], dim=1)
+        all_d = torch.cat([self.dist_to(seeds), self.cand_dists.reshape(B, -1)], dim=1)
+        if all_ids.shape[1] < k_res:  # keep the output width at k_res
+            pad = k_res - all_ids.shape[1]
+            all_ids = torch.nn.functional.pad(all_ids, (0, pad), value=cap)
+            all_d = torch.nn.functional.pad(all_d, (0, pad), value=INF)
+        safe = all_ids.clamp(0, cap - 1)
+        ok = masks[mask_idx[:, None], safe] & (all_ids < self.n_valid)
+        all_ids = torch.where(ok, all_ids, cap)
+        all_d = torch.where(ok, all_d, INF)
+        s_ids, order = torch.sort(all_ids, dim=1, stable=True)
+        s_d = torch.where(_dup_mask(s_ids), INF, all_d.gather(1, order))
+        order = torch.sort(s_d, dim=1, stable=True).indices[:, :k_res]
+        return s_ids.gather(1, order), s_d.gather(1, order), vis_ids
 
 
 def _beam_search(
@@ -530,19 +592,103 @@ class VamanaGraph:
                 out_i[s : s + cnt] = np.take_along_axis(ids_np, order, axis=1)[:cnt]
         return out_d, out_i
 
-    def _beam(self, data, adj, q_shape, L, max_iters, use_pq) -> "_Beam":
+    def _beam(self, data, adj, q_shape, L, max_iters, use_pq, masked=False) -> "_Beam":
         """The graph's beam-search runner for these shapes, kept across
         calls (on a card it holds the captured CUDA graph); rebuilt when the
         device copies it reads were replaced."""
         beams = self.__dict__.setdefault("_beams", {})
-        key = (use_pq, q_shape, L, max_iters)
+        key = (masked, use_pq, q_shape, L, max_iters)
         beam = beams.get(key)
         if beam is None or beam.vectors is not data or beam.adjacency is not adj:
-            beam = _Beam(
+            beam = (_MaskedBeam if masked else _Beam)(
                 data, adj, self.n, self.medoid, q_shape, L, max_iters, self.params.metric, use_pq
             )
             beams[key] = beam
         return beam
+
+    def search_masked(
+        self,
+        queries: np.ndarray,
+        k: int,
+        unique_masks,
+        mask_idx: Optional[np.ndarray] = None,
+        L: Optional[int] = None,
+        batch: int = 64,
+        use_pq: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Predicate-aware beam search (the filtered-DiskANN traversal).
+
+        The traversal expands *through* masked nodes, but only admissible
+        nodes are admitted to the returned top-``k``.  ``unique_masks`` is
+        ``(m, n)`` bool over graph ids (numpy, or a tensor already on the
+        graph's device; the caller folds tombstones in); ``mask_idx`` maps
+        each query to its row (default: all share row 0).  With ``use_pq``
+        the traversal runs on ADC distances and the admitted pool ∪ the
+        admissible visited nodes go through the ``gather_rerank`` kernel.
+
+        ``L`` is NOT floored at ``k``: the admitted set is built from every
+        neighbour the traversal evaluates, so a wide admit target rides a
+        beam of ordinary depth.
+
+        Returns (dists (Q, k), ids (Q, k)), each row ascending; slots the
+        traversal could not fill hold ``(+inf, -1)``."""
+        k = int(k)
+        L = int(L) if L is not None else self.params.L
+        queries = np.ascontiguousarray(queries, dtype=np.float32)
+        Q = queries.shape[0]
+        cap = self.vectors.shape[0]
+        masks = torch.as_tensor(unique_masks).to(self.device, torch.bool)
+        if masks.dim() == 1:
+            masks = masks[None, :]
+        mask_pad = torch.zeros((masks.shape[0], cap), dtype=torch.bool, device=self.device)
+        width = min(masks.shape[1], cap)
+        mask_pad[:, :width] = masks[:, :width]
+        idx_all = torch.zeros(Q, dtype=torch.int64, device=self.device)
+        if mask_idx is not None:
+            idx_all = torch.as_tensor(np.asarray(mask_idx, np.int64)).to(self.device)
+        out_d = np.full((Q, k), np.inf, np.float32)
+        out_i = np.full((Q, k), -1, np.int64)
+        max_iters = int(1.3 * L) + 8
+        if use_pq:
+            if self.pq is None or self.pq_codes is None:
+                raise ValueError("graph has no PQ data; call attach_pq()")
+            data = device_cache.device_codes(self)
+        else:
+            data = device_cache.device_padded_vectors(self)
+        adj = device_cache.device_adjacency(self)
+        for s, cnt, qb in self._batches(queries, batch):
+            ib = idx_all[s : s + batch]
+            if ib.shape[0] < batch:
+                ib = torch.nn.functional.pad(ib, (0, batch - ib.shape[0]))
+            with device_cache.device_lock(self.device):
+                if use_pq:
+                    luts = build_luts(self.pq, qb, device=self.device)
+                    beam = self._beam(data, adj, tuple(luts.shape), L, max_iters, True, masked=True)
+                    res_i, _res_d, vis_i = beam.run_masked(luts, mask_pad, ib, k)
+                    # exact rerank over admitted pool ∪ admissible visited
+                    # nodes: inadmissible and duplicate ids fold to pid -1
+                    s_ids = torch.sort(torch.cat([res_i, vis_i], dim=1), dim=1, stable=True).values
+                    adm = (
+                        mask_pad[ib[:, None], s_ids.clamp(0, cap - 1)]
+                        & (s_ids < self.n)
+                        & ~_dup_mask(s_ids)
+                    )
+                    pids = torch.where(adm, s_ids, -1).to(torch.int32)
+                    dists, ids = ops.gather_rerank(
+                        qb,
+                        device_cache.device_vectors(self),
+                        pids,
+                        k,
+                        metric=self.params.metric,
+                        backend="auto",
+                    )
+                else:
+                    beam = self._beam(data, adj, tuple(qb.shape), L, max_iters, False, masked=True)
+                    ids, dists, _vis = beam.run_masked(qb, mask_pad, ib, k)
+                ids = torch.where(torch.isfinite(dists), ids.to(torch.int64), -1)
+                out_d[s : s + cnt] = dists.cpu().numpy()[:cnt]
+                out_i[s : s + cnt] = ids.cpu().numpy()[:cnt]
+        return out_d, out_i
 
     # -- mutation -----------------------------------------------------------------
     def _add_reverse_edges(self, src_ids: np.ndarray, nbrs: np.ndarray) -> None:
@@ -588,6 +734,7 @@ class VamanaGraph:
         full[: self.n] = codes[: self.n]
         self.pq_codes = full
         device_cache.drop_cached(self, "_device_codes")
+        device_cache.drop_cached(self, "_device_codes_u8")
 
 
 def graph_from_arrays(

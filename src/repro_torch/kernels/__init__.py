@@ -1,6 +1,6 @@
-"""Hand-written Hopper kernels for the unfiltered DiskANN path.
+"""Hand-written Hopper kernels.
 
-Three kernels, each with a plain PyTorch version in :mod:`repro_torch.kernels.ref`
+Each kernel has a plain PyTorch version in :mod:`repro_torch.kernels.ref`
 and a dispatching public wrapper in :mod:`repro_torch.kernels.ops`:
 
 - ``rerank_distances`` — dense exact-distance matrix (Stage-B rerank,
@@ -9,6 +9,9 @@ and a dispatching public wrapper in :mod:`repro_torch.kernels.ops`:
   (Stage-A ``search_pq``), ``csrc/rerank.cu``
 - ``kmeans_assign``    — nearest-centroid assignment (Stage-0 k-means, PQ
   encoding, shard ownership), ``csrc/kmeans_assign.cu``
+- ``masked_exact_topk`` / ``masked_pq_topk`` / ``unified_masked_topk`` —
+  masked exact, PQ-ADC and mixed-flavor top-k (filtered Stage A, the fresh
+  tail), ``csrc/masked_topk.cu``
 
 The CUDA sources build on first use (:mod:`repro_torch.kernels._build`);
 importing this package builds nothing.
@@ -17,6 +20,15 @@ importing this package builds nothing.
 from repro_torch.kernels.ops import (  # noqa: F401
     exact_distances,
     exact_topk,
+    expand_mask_plane,
     gather_rerank,
     kmeans_assign,
+    masked_exact_topk,
+    masked_exact_topk_dedup,
+    masked_exact_topk_multi,
+    masked_pq_topk,
+    masked_pq_topk_dedup,
+    masked_pq_topk_multi,
+    unified_masked_topk,
+    unified_masked_topk_dedup,
 )

@@ -110,6 +110,16 @@ def device_codes(graph) -> torch.Tensor:
     )
 
 
+def device_codes_u8(graph) -> torch.Tensor:
+    """uint8 device copy of ``graph.pq_codes[:graph.n]`` for the masked ADC
+    kernels (one byte per code; the beam search gathers from the int64
+    copy)."""
+    return cached_device_array(
+        graph, "_device_codes_u8", graph.pq_codes, graph.n,
+        lambda a: to_device(a[: graph.n], graph.device, torch.uint8), graph.device,
+    )
+
+
 def device_tombstones(graph) -> torch.Tensor:
     """bool device copy of the ``(cap,)`` tombstone bitmap."""
     return cached_device_array(

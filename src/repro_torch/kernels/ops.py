@@ -1,4 +1,4 @@
-"""Public dispatch for the kernels of the unfiltered DiskANN path.
+"""Public dispatch for the hand-written kernels.
 
 Backend contract (as ``repro/kernels/ops.py``, with the Pallas backend
 replaced by the CUDA kernels):
@@ -10,9 +10,30 @@ replaced by the CUDA kernels):
   comparisons in ``chip_smoke.py``).
 
 The kernels take ragged shapes themselves, so nothing is padded here.
-Inputs are coerced to contiguous f32 (ids to int32) on their own device.
-The masked, ADC-scan and quantized ops arrive with the slices that port
-their kernels.
+Inputs are coerced to contiguous f32 (ids to int32, masks to bytes, PQ
+codes to uint8) on their own device; every tensor of a call must lie on one
+device.
+
+Masked-op contract (``masked_exact_topk`` / ``masked_pq_topk``, their
+``*_multi`` per-query-mask variants, ``unified_masked_topk`` and the three
+``*_dedup`` forms), as the reference's:
+
+- ``mask`` is a truthy (N,) row mask: falsy rows (predicate misses,
+  tombstones) score +inf before the top-k and can never displace a passing
+  row.  ``*_multi`` takes a (Q, N) plane, row q for query q; Q == 1 goes to
+  the single-mask op.  ``*_dedup`` takes the plane factored as unique rows
+  (m, N) plus a (Q,) row index; the kernels read that form directly, so the
+  plane is never expanded on the card (the CPU path expands it with
+  :func:`expand_mask_plane` for the plain version).
+- ``unified_masked_topk`` scores each query by its own ``flavor`` (truthy =
+  PQ-ADC) in one launch; mask and flavor fold into the selector plane
+  ``mask * (1 + flavor)`` (0 = masked, 1 = exact, 2 = ADC).
+- Outputs are (dists (Q, k) f32, ids (Q, k) int32), each row ascending with
+  ties to the lowest id; slots past the passing rows, and past N when
+  k > N, hold (+inf, -1).
+- ``dtype`` other than ``"f32"`` (the quantized scans) raises
+  ``NotImplementedError``: those kernels are not ported yet, and scoring in
+  f32 in their place would be a silent fallback.
 """
 
 from __future__ import annotations
@@ -21,6 +42,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import masked_topk as _masked
 from repro_torch.kernels import ref
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_assign_kernel
 from repro_torch.kernels.rerank import gather_rerank as _gather_rerank_kernel
@@ -74,8 +96,238 @@ def exact_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k nearest: returns (distances (Q, k), indices (Q, k))."""
     d = exact_distances(queries, points, metric=metric, backend=backend)
-    vals, idx = torch.topk(d, int(k), dim=1, largest=False, sorted=True)
-    return vals, idx
+    # a stable sort: ties go to the lowest index, as lax.top_k (torch.topk
+    # leaves the order of ties unspecified)
+    return ref._ascending_topk(d, int(k))
+
+
+# -- mask-aware top-k --------------------------------------------------------
+
+def _check_dtype(dtype: str) -> None:
+    if dtype != "f32":
+        raise NotImplementedError(
+            f"masked scan dtype {dtype!r} is not ported to repro_torch yet "
+            "(ROADMAP Queue 1, item 7: quantized flavors)"
+        )
+
+
+def _bytes(mask: torch.Tensor) -> torch.Tensor:
+    """A truthy mask (any dtype) as contiguous uint8 (nonzero = passes)."""
+    if mask.dtype != torch.uint8:
+        mask = mask != 0
+    return mask.to(torch.uint8).contiguous()
+
+
+def _codes(codes: torch.Tensor) -> torch.Tensor:
+    return codes.to(torch.uint8).contiguous()
+
+
+def masked_exact_topk(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "l2",
+    backend: str = "auto",
+    dtype: str = "f32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked exact top-k: (Q, D) x (N, D) under a (N,) row mask ->
+    (dists (Q, k), ids (Q, k)) per the masked-op contract above."""
+    _check_dtype(dtype)
+    q, x = _f32(queries), _f32(points)
+    if _use_kernel(backend, q, x, mask):
+        return _masked.masked_exact_topk(
+            q, x, _bytes(mask).reshape(1, -1), None, int(k), metric=metric
+        )
+    return ref.masked_exact_topk(q, x, mask, int(k), metric=metric)
+
+
+def masked_pq_topk(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    *,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked PQ-ADC top-k: LUTs (Q, m, K) x codes (N, m) under a (N,) row
+    mask -> (scores (Q, k), ids (Q, k))."""
+    lt = _f32(luts)
+    if _use_kernel(backend, lt, codes, mask):
+        return _masked.masked_pq_topk(
+            lt, _codes(codes), _bytes(mask).reshape(1, -1), None, int(k)
+        )
+    return ref.masked_pq_topk(lt, codes, mask, int(k))
+
+
+def _check_plane(masks: torch.Tensor, q: int, n: int) -> None:
+    if tuple(masks.shape) != (q, n):
+        raise ValueError(f"mask plane must be ({q}, {n}), got {tuple(masks.shape)}")
+
+
+def _all_rows(q: int, device) -> torch.Tensor:
+    return torch.arange(q, dtype=torch.int32, device=device)
+
+
+def masked_exact_topk_multi(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    masks: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "l2",
+    backend: str = "auto",
+    dtype: str = "f32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query-mask exact top-k under a (Q, N) plane (row q masks query
+    q): one call for a heterogeneous batch; Q == 1 goes to the single-mask
+    op."""
+    _check_dtype(dtype)
+    _check_plane(masks, queries.shape[0], points.shape[0])
+    if queries.shape[0] == 1:
+        return masked_exact_topk(queries, points, masks[0], k, metric=metric, backend=backend)
+    q, x = _f32(queries), _f32(points)
+    if _use_kernel(backend, q, x, masks):
+        return _masked.masked_exact_topk(
+            q, x, _bytes(masks), _all_rows(q.shape[0], q.device), int(k), metric=metric
+        )
+    return ref.masked_exact_topk_multi(q, x, masks, int(k), metric=metric)
+
+
+def masked_pq_topk_multi(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    masks: torch.Tensor,
+    k: int,
+    *,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query-mask PQ-ADC top-k under a (Q, N) plane; Q == 1 goes to the
+    single-mask op."""
+    _check_plane(masks, luts.shape[0], codes.shape[0])
+    if luts.shape[0] == 1:
+        return masked_pq_topk(luts, codes, masks[0], k, backend=backend)
+    lt = _f32(luts)
+    if _use_kernel(backend, lt, codes, masks):
+        return _masked.masked_pq_topk(
+            lt, _codes(codes), _bytes(masks), _all_rows(lt.shape[0], lt.device), int(k)
+        )
+    return ref.masked_pq_topk_multi(lt, codes, masks, int(k))
+
+
+def unified_masked_topk(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    masks: torch.Tensor,
+    flavor: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "l2",
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-dispatch mixed-flavor masked top-k: (Q, D) x (N, D) exact and
+    (Q, m, K) x (N, m) PQ-ADC under a (Q, N) mask plane, with a per-query
+    ``flavor`` (truthy = ADC)."""
+    q, x, lt = _f32(queries), _f32(points), _f32(luts)
+    _check_plane(masks, q.shape[0], x.shape[0])
+    if lt.shape[0] != q.shape[0] or codes.shape[0] != x.shape[0]:
+        raise ValueError(f"shape mismatch: luts {tuple(lt.shape)}, codes {tuple(codes.shape)}")
+    fl = flavor.reshape(-1) != 0
+    if _use_kernel(backend, q, x, lt, codes, masks, fl):
+        return _masked.unified_masked_topk(
+            q, x, lt, _codes(codes), _bytes(masks), _all_rows(q.shape[0], q.device),
+            fl.contiguous(), int(k), metric=metric,
+        )
+    return ref.unified_masked_topk(q, x, lt, codes, masks, fl, int(k), metric=metric)
+
+
+# -- dedup'd mask planes -------------------------------------------------------
+#
+# A coalesced fragment's (Q, N) plane usually holds m << Q distinct rows.  The
+# *_dedup entry points take the factored form (unique_masks (m, N), row_index
+# (Q,)): on the card the kernels read it as it is; on the CPU the plane is
+# expanded for the plain version.  Results equal the dense *_multi call on
+# the expanded plane.
+
+
+def expand_mask_plane(unique_masks: torch.Tensor, row_index: torch.Tensor) -> torch.Tensor:
+    """(m, N) unique rows + (Q,) row index -> dense (Q, N) plane."""
+    return unique_masks.index_select(0, row_index.to(device=unique_masks.device, dtype=torch.int64))
+
+
+def masked_exact_topk_dedup(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    unique_masks: torch.Tensor,
+    row_index: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "l2",
+    backend: str = "auto",
+    dtype: str = "f32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``masked_exact_topk_multi`` on ``unique_masks[row_index]``."""
+    _check_dtype(dtype)
+    q, x = _f32(queries), _f32(points)
+    if q.shape[0] == 1 or not _use_kernel(backend, q, x, unique_masks, row_index):
+        return masked_exact_topk_multi(
+            q, x, expand_mask_plane(unique_masks, row_index), k, metric=metric, backend=backend
+        )
+    return _masked.masked_exact_topk(
+        q, x, _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k), metric=metric
+    )
+
+
+def masked_pq_topk_dedup(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    unique_masks: torch.Tensor,
+    row_index: torch.Tensor,
+    k: int,
+    *,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``masked_pq_topk_multi`` on ``unique_masks[row_index]``."""
+    lt = _f32(luts)
+    if lt.shape[0] == 1 or not _use_kernel(backend, lt, codes, unique_masks, row_index):
+        return masked_pq_topk_multi(
+            lt, codes, expand_mask_plane(unique_masks, row_index), k, backend=backend
+        )
+    return _masked.masked_pq_topk(
+        lt, _codes(codes), _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k)
+    )
+
+
+def unified_masked_topk_dedup(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    unique_masks: torch.Tensor,
+    row_index: torch.Tensor,
+    flavor: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "l2",
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``unified_masked_topk`` on ``unique_masks[row_index]``."""
+    q, x, lt = _f32(queries), _f32(points), _f32(luts)
+    fl = flavor.reshape(-1) != 0
+    if not _use_kernel(backend, q, x, lt, codes, unique_masks, row_index, fl):
+        return unified_masked_topk(
+            q, x, lt, codes, expand_mask_plane(unique_masks, row_index), fl, k,
+            metric=metric, backend=backend,
+        )
+    if lt.shape[0] != q.shape[0] or codes.shape[0] != x.shape[0]:
+        raise ValueError(f"shape mismatch: luts {tuple(lt.shape)}, codes {tuple(codes.shape)}")
+    return _masked.unified_masked_topk(
+        q, x, lt, _codes(codes), _bytes(unique_masks), row_index.to(torch.int32).contiguous(),
+        fl.contiguous(), int(k), metric=metric,
+    )
 
 
 # -- pooled gather-rerank -----------------------------------------------------

@@ -1,11 +1,17 @@
-"""Plain PyTorch versions of the kernels on the unfiltered DiskANN path.
+"""Plain PyTorch versions of the hand-written kernels.
 
 These are the semantic ground truth for the CUDA kernels (``chip_smoke.py``
 holds each kernel against them on the card) and the CPU path of every
 wrapper.  Each mirrors its counterpart in the reference's
-``repro/kernels/ref.py`` operation for operation, so the CPU tests can hold
-the two packages to float tolerance.  The masked, ADC-scan and quantized
-oracles arrive with the slices that port their kernels.
+``repro/kernels/ref.py``, so the CPU tests can hold the two packages to
+float tolerance.  The quantized (bf16 / int8) oracles arrive with the slice
+that ports their kernels.
+
+The masked oracles score each query row on its own (one matrix-vector
+product per row, ADC sums in subquantizer order), so a row's scores carry
+the same bits whatever other rows share the call.  The executor relies on
+that: a query answered by the unified mixed-flavor op, by the split
+per-flavor ops or by the per-predicate group loop gets the same hits.
 """
 
 from __future__ import annotations
@@ -40,6 +46,37 @@ def build_pq_luts(
     if metric == "ip":
         return -torch.einsum("qmd,mkd->qmk", q_sub, codebook)
     raise ValueError(f"unknown metric {metric}")
+
+
+def pq_adc_scores(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Asymmetric-distance-computation scores: luts (Q, m, K) f32, codes
+    (N, m) integer -> (Q, N) f32 with ``scores[q, n] = sum_j luts[q, j,
+    codes[n, j]]``, summed in subquantizer order from 0.0 (the order the
+    ADC kernel sums in, so the two agree bit for bit)."""
+    codes = codes.to(device=luts.device, dtype=torch.int64)
+    out = torch.zeros((luts.shape[0], codes.shape[0]), dtype=torch.float32, device=luts.device)
+    for j in range(luts.shape[1]):
+        out = out + luts[:, j, :].to(torch.float32)[:, codes[:, j]]
+    return out
+
+
+def _row_cross(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """(Q, N) inner products, one matrix-vector product per query row, so a
+    row's bits do not depend on how many rows share the call (a matrix
+    product may pick its routine by the row count)."""
+    if queries.shape[0] == 0:
+        return queries.new_zeros((0, points.shape[0]))
+    return torch.stack([points @ q for q in queries])
+
+
+def _row_distances(queries: torch.Tensor, points: torch.Tensor, metric: str) -> torch.Tensor:
+    """Row-invariant :func:`l2_distances` / :func:`ip_distances`."""
+    cross = _row_cross(queries, points)
+    if metric == "ip":
+        return -cross
+    q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
+    x2 = torch.sum(points * points, dim=-1)[None, :]
+    return q2 - 2.0 * cross + x2
 
 
 def _ascending_topk(d: torch.Tensor, k: int):
@@ -83,6 +120,73 @@ def gather_rerank(
         out_d = torch.nn.functional.pad(out_d, (0, pad), value=float("inf"))
         out_i = torch.nn.functional.pad(out_i, (0, pad), value=-1)
     return out_d.to(torch.float32), out_i
+
+
+def _masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """Shared masked top-k epilogue: scores (Q, N), mask (N,) shared or
+    (Q, N) per query, truthy.  Masked-out rows are forced to +inf before the
+    reduction.  Returns (dists (Q, k) f32, ids (Q, k) int32), each row
+    ascending with ties to the lowest id; slots beyond the passing rows, and
+    beyond N when k > N, hold (+inf, -1)."""
+    n = scores.shape[1]
+    mask = mask.to(device=scores.device).bool()
+    if mask.dim() == 1:
+        mask = mask[None, :]
+    scores = torch.where(mask, scores, torch.inf)
+    k_avail = min(k, n)
+    d, idx = _ascending_topk(scores, k_avail)
+    idx = torch.where(torch.isinf(d), -1, idx).to(torch.int32)
+    if k_avail < k:
+        pad = k - k_avail
+        d = torch.nn.functional.pad(d, (0, pad), value=float("inf"))
+        idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+    return d.to(torch.float32), idx
+
+
+def masked_exact_topk(
+    queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor, k: int, metric: str = "l2"
+):
+    """Mask-aware exact top-k: queries (Q, D), points (N, D), mask (N,)."""
+    return _masked_topk(_row_distances(queries, points, metric), mask, k)
+
+
+def masked_pq_topk(luts: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor, k: int):
+    """Mask-aware PQ-ADC top-k: luts (Q, m, K), codes (N, m), mask (N,)."""
+    return _masked_topk(pq_adc_scores(luts, codes), mask, k)
+
+
+def masked_exact_topk_multi(
+    queries: torch.Tensor, points: torch.Tensor, masks: torch.Tensor, k: int, metric: str = "l2"
+):
+    """Per-query-mask exact top-k: masks (Q, N), row q masks query q."""
+    return _masked_topk(_row_distances(queries, points, metric), masks, k)
+
+
+def masked_pq_topk_multi(luts: torch.Tensor, codes: torch.Tensor, masks: torch.Tensor, k: int):
+    """Per-query-mask PQ-ADC top-k: luts (Q, m, K), codes (N, m), masks (Q, N)."""
+    return _masked_topk(pq_adc_scores(luts, codes), masks, k)
+
+
+def unified_masked_topk(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    masks: torch.Tensor,
+    flavor: torch.Tensor,
+    k: int,
+    metric: str = "l2",
+):
+    """Mixed-flavor masked top-k: each query row is scored by its own
+    flavor (truthy = PQ-ADC, else full precision), then the shared masked
+    top-k.  masks (N,) or (Q, N)."""
+    fl = flavor.to(device=queries.device).bool().reshape(-1, 1)
+    mask = masks.to(device=queries.device).bool()
+    # selector plane: 0 = masked out, 1 = exact flavor, 2 = ADC flavor
+    sel = mask.to(torch.uint8) * (1 + fl.to(torch.uint8))
+    d_exact = _row_distances(queries, points, metric)
+    d_adc = pq_adc_scores(luts, codes)
+    return _masked_topk(torch.where(sel == 2, d_adc, d_exact), sel != 0, k)
 
 
 def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor):

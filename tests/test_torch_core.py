@@ -270,3 +270,45 @@ def test_cuda_search_matches_cpu_search(data, ref_graph, pq):
         wd, wi = getattr(cpu, fn)(Q, 10)
         assert (gi == wi).mean() > 0.99
         np.testing.assert_allclose(np.sort(gd, 1), np.sort(wd, 1), rtol=1e-4, atol=1e-4)
+
+
+# -- search_masked ---------------------------------------------------------------
+
+def _mask_rows(n, seed):
+    """Three admissibility rows over graph ids (tight, medium, wide) with a
+    few tombstones folded in, as the executor folds them."""
+    rng = np.random.default_rng(seed)
+    rows = np.stack([rng.random(n) < f for f in (0.05, 0.3, 0.8)])
+    dead = rng.random(n) < 0.05
+    return rows & ~dead[None, :], dead
+
+
+@pytest.mark.parametrize("pq", [False, True])
+@pytest.mark.parametrize("width,L", [(10, 24), (40, 16), (120, 24)])
+def test_search_masked_equal_ids(data, ref_graph, pq, width, L):
+    """Per-query mask rows through the dedup'd form; widths below, near and
+    above L (L is not floored at the admit target)."""
+    _, Q = data
+    port = _port_of(ref_graph)
+    rows, _ = _mask_rows(ref_graph.n, 5)
+    idx = np.arange(len(Q)) % 3
+    wd, wi = ref_graph.search_masked(Q, width, rows, idx, L=L, use_pq=pq)
+    gd, gi = port.search_masked(Q, width, rows, idx, L=L, use_pq=pq)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(np.isinf(gd), np.isinf(wd))
+    fin = np.isfinite(wd)
+    np.testing.assert_allclose(gd[fin], wd[fin], rtol=1e-5, atol=1e-6)
+    adm = rows[idx[:, None], np.clip(gi, 0, ref_graph.n - 1)] | (gi < 0)
+    assert adm.all()
+
+
+def test_search_masked_tombstones_and_shared_row(data, ref_graph):
+    """One shared row (mask_idx None) with tombstones folded in: no
+    tombstoned id is admitted, and the ids are the reference's."""
+    _, Q = data
+    rows, dead = _mask_rows(ref_graph.n, 9)
+    port = _port_of(ref_graph)
+    wd, wi = ref_graph.search_masked(Q, 20, rows[2], L=24)
+    gd, gi = port.search_masked(Q, 20, torch.as_tensor(rows[2]), L=24)
+    np.testing.assert_array_equal(gi, wi)
+    assert not np.isin(gi[gi >= 0], np.flatnonzero(dead)).any()

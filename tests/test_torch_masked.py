@@ -1,0 +1,359 @@
+"""The masked top-k ops of ``repro_torch.kernels.ops`` against the reference.
+
+The five masked ops and the three ``*_dedup`` forms run their plain
+versions here (CPU tensors) and are held against ``repro.kernels.ops`` with
+``backend="ref"`` on the same numpy inputs made from a seed.  Ids are equal
+(inputs are random, or integer-valued where a case needs exact ties, so
+both sides tie the same way and pick the lowest id); exact distances agree
+within 1e-5 of |q|^2 + |x|^2 (the expanded form, summed by other matrix
+routines); ADC scores within 1e-5 relative.  Within the port, the unified
+op gives each row the bits of the split per-flavor op.
+
+The ``test_cuda_*`` cases launch the CUDA kernels against their plain
+versions and skip (inside the ``cuda`` fixture) where there is no card; on
+the card select them with ``-k cuda``.  The reference is imported inside
+the ``ref`` fixture, so the card-only cases run where JAX is not installed.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.vamana import brute_force_topk  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import masked_topk as kmasked  # noqa: E402
+
+M_SUB, K_CODE = 4, 16
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """(jax.numpy, repro.kernels.ops), or a skip where JAX is absent."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+
+    return jnp, jops
+
+
+def _case(name):
+    """(queries, points, luts, codes, plane (Q, N) bool, k) for one edge case."""
+    rng = np.random.default_rng(CASES.index(name) + 1)
+    q, n, d, k, frac = {
+        "basic": (5, 70, 16, 10, 0.5),
+        "all_masked": (4, 60, 8, 5, 0.0),
+        "k_gt_n": (3, 7, 8, 12, 1.0),
+        "k_gt_passing": (4, 70, 16, 10, 0.07),
+        "ragged": (3, 129, 33, 9, 0.6),
+        "q1": (1, 50, 8, 5, 0.5),
+        "ties": (4, 40, 8, 12, 0.8),
+        "chunks": (6, 1300, 16, 40, 0.5),
+        "k_gt_chunk": (3, 1300, 8, 600, 0.7),
+    }[name]
+    if name == "ties":  # integer values: every sum is exact, duplicated rows tie
+        X = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+        X[n // 2 :] = X[: n - n // 2]
+        Q = rng.integers(-2, 3, size=(q, d)).astype(np.float32)
+        luts = rng.integers(0, 4, size=(q, M_SUB, K_CODE)).astype(np.float32)
+    else:
+        X = rng.normal(size=(n, d)).astype(np.float32)
+        Q = rng.normal(size=(q, d)).astype(np.float32)
+        luts = rng.normal(size=(q, M_SUB, K_CODE)).astype(np.float32)
+    codes = rng.integers(0, K_CODE, size=(n, M_SUB)).astype(np.uint8)
+    plane = rng.random((q, n)) < frac
+    if name == "k_gt_passing":
+        plane[:] = False
+        plane[:, rng.choice(n, 5, replace=False)] = True
+    return Q, X, luts, codes, plane, k
+
+
+CASES = ["basic", "all_masked", "k_gt_n", "k_gt_passing", "ragged", "q1", "ties", "chunks",
+         "k_gt_chunk"]
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _atol(Q, X):
+    return 1e-5 * (float(np.max(np.sum(Q * Q, 1), initial=0)) + float(np.max(np.sum(X * X, 1))))
+
+
+def _assert_topk(got, want, atol, rtol=1e-5):
+    gd, gi = (np.asarray(a) for a in got)
+    wd, wi = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(np.isinf(gd), np.isinf(wd))
+    fin = np.isfinite(wd)
+    np.testing.assert_allclose(gd[fin], wd[fin], rtol=rtol, atol=atol)
+    assert ((wi < 0) == np.isinf(wd)).all()
+
+
+# -- plain versions vs repro.kernels.ops (backend="ref") ------------------------
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_masked_exact_topk_matches_reference(ref, case, metric):
+    jnp, jops = ref
+    Q, X, _, _, plane, k = _case(case)
+    want = jops.masked_exact_topk(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(plane[0]), k,
+                                  metric=metric, backend="ref")
+    got = ops.masked_exact_topk(_t(Q), _t(X), _t(plane[0]), k, metric=metric)
+    _assert_topk(got, want, _atol(Q, X))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_masked_exact_topk_multi_matches_reference(ref, case, metric):
+    jnp, jops = ref
+    Q, X, _, _, plane, k = _case(case)
+    want = jops.masked_exact_topk_multi(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(plane), k,
+                                        metric=metric, backend="ref")
+    got = ops.masked_exact_topk_multi(_t(Q), _t(X), _t(plane), k, metric=metric)
+    _assert_topk(got, want, _atol(Q, X))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_masked_pq_topk_matches_reference(ref, case):
+    jnp, jops = ref
+    _, _, luts, codes, plane, k = _case(case)
+    want = jops.masked_pq_topk(jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(plane[0]), k,
+                               backend="ref")
+    got = ops.masked_pq_topk(_t(luts), _t(codes), _t(plane[0]), k)
+    _assert_topk(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_masked_pq_topk_multi_matches_reference(ref, case):
+    jnp, jops = ref
+    _, _, luts, codes, plane, k = _case(case)
+    want = jops.masked_pq_topk_multi(jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(plane), k,
+                                     backend="ref")
+    got = ops.masked_pq_topk_multi(_t(luts), _t(codes), _t(plane), k)
+    _assert_topk(got, want, 1e-6)
+
+
+def _flavors(q, kind):
+    return {"exact": np.zeros(q, bool), "adc": np.ones(q, bool),
+            "mixed": np.arange(q) % 2 == 1}[kind]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("kind", ["exact", "adc", "mixed"])
+def test_unified_masked_topk_matches_reference_and_split(ref, case, kind):
+    jnp, jops = ref
+    Q, X, luts, codes, plane, k = _case(case)
+    fl = _flavors(Q.shape[0], kind)
+    want = jops.unified_masked_topk(
+        jnp.asarray(Q), jnp.asarray(X), jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(plane),
+        jnp.asarray(fl), k, backend="ref",
+    )
+    got = ops.unified_masked_topk(_t(Q), _t(X), _t(luts), _t(codes), _t(plane), _t(fl), k)
+    _assert_topk(got, want, _atol(Q, X))
+    # each row carries the bits of the split per-flavor op
+    ex_d, ex_i = ops.masked_exact_topk_multi(_t(Q), _t(X), _t(plane), k)
+    pq_d, pq_i = ops.masked_pq_topk_multi(_t(luts), _t(codes), _t(plane), k)
+    f = _t(fl)
+    assert torch.equal(got[0], torch.where(f[:, None], pq_d, ex_d))
+    assert torch.equal(got[1], torch.where(f[:, None], pq_i, ex_i))
+
+
+def _dedup(plane, seed):
+    """Unique rows and a row index with repeats (row 0 used twice at least)."""
+    rng = np.random.default_rng(seed)
+    unique = plane[: max(1, plane.shape[0] // 2 + 1)]
+    idx = rng.integers(0, unique.shape[0], size=plane.shape[0])
+    idx[-1] = idx[0]
+    return unique, idx
+
+
+@pytest.mark.parametrize("case", ["basic", "all_masked", "k_gt_passing", "ragged", "q1", "chunks"])
+def test_dedup_ops_match_reference(ref, case):
+    jnp, jops = ref
+    Q, X, luts, codes, plane, k = _case(case)
+    unique, idx = _dedup(plane, 3)
+    ju, ji = jnp.asarray(unique), jnp.asarray(idx)
+    tu, ti = _t(unique), _t(idx)
+    want = jops.masked_exact_topk_dedup(jnp.asarray(Q), jnp.asarray(X), ju, ji, k, backend="ref")
+    got = ops.masked_exact_topk_dedup(_t(Q), _t(X), tu, ti, k)
+    _assert_topk(got, want, _atol(Q, X))
+    want = jops.masked_pq_topk_dedup(jnp.asarray(luts), jnp.asarray(codes), ju, ji, k, backend="ref")
+    got = ops.masked_pq_topk_dedup(_t(luts), _t(codes), tu, ti, k)
+    _assert_topk(got, want, 1e-6)
+    fl = _flavors(Q.shape[0], "mixed")
+    want = jops.unified_masked_topk_dedup(
+        jnp.asarray(Q), jnp.asarray(X), jnp.asarray(luts), jnp.asarray(codes), ju, ji,
+        jnp.asarray(fl), k, backend="ref",
+    )
+    got = ops.unified_masked_topk_dedup(_t(Q), _t(X), _t(luts), _t(codes), tu, ti, _t(fl), k)
+    _assert_topk(got, want, _atol(Q, X))
+    np.testing.assert_array_equal(ops.expand_mask_plane(tu, ti).numpy(), unique[idx])
+
+
+def test_quantized_dtype_raises_naming_its_item():
+    Q, X, _, _, plane, k = _case("basic")
+    for fn, mask in ((ops.masked_exact_topk, plane[0]), (ops.masked_exact_topk_multi, plane)):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+            fn(_t(Q), _t(X), _t(mask), k, dtype="int8")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        ops.masked_exact_topk_dedup(_t(Q), _t(X), _t(plane), _t(np.arange(Q.shape[0])), k,
+                                    dtype="bf16")
+
+
+# -- exact_topk ties (a slice-1 fault: torch.topk orders ties freely) -------------
+
+@pytest.mark.parametrize("tile", [1, 11])
+def test_exact_topk_ties_take_the_lowest_index(ref, tile):
+    """Query [0] against rows [2, 1, 1, 1, 3, 1] (tiled to 66 rows): the
+    reference's lax.top_k returns the lowest tied ids first."""
+    jnp, jops = ref
+    Q = np.zeros((1, 1), np.float32)
+    X = np.tile(np.array([[2], [1], [1], [1], [3], [1]], np.float32), (tile, 1))
+    wd, wi = jops.exact_topk(jnp.asarray(Q), jnp.asarray(X), 4, backend="ref")
+    gd, gi = ops.exact_topk(_t(Q), _t(X), 4)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gi.numpy(), [[1, 2, 3, 5]])
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    bd, bi = brute_force_topk(X, Q, 4, device="cpu")
+    np.testing.assert_array_equal(bi, [[1, 2, 3, 5]])
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
+    Q, X, luts, codes, plane, k = _case("basic")
+    _build.reset_launch_counts()
+    rows = _t(plane.astype(np.uint8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmasked.masked_exact_topk(_t(Q), _t(X), rows, None, k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmasked.masked_pq_topk(_t(luts), _t(codes), rows, None, k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmasked.unified_masked_topk(_t(Q), _t(X), _t(luts), _t(codes), rows, None,
+                                    _t(np.zeros(Q.shape[0], bool)), k)
+    ops.masked_exact_topk(_t(Q), _t(X), _t(plane[0]), k)
+    ops.unified_masked_topk(_t(Q), _t(X), _t(luts), _t(codes), _t(plane),
+                            _t(np.ones(Q.shape[0], bool)), k)
+    assert _build.launch_counts() == {}
+
+
+# -- the CUDA kernels against their plain versions (card only) ----------------
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(np.asarray(a)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_masked_exact_topk_matches_plain(cuda, case, metric):
+    Q, X, _, _, plane, k = _case(case)
+    q, x, m, p = _on(cuda, Q, X, plane[0], plane)
+    for fn, mask in ((ops.masked_exact_topk, m), (ops.masked_exact_topk_multi, p)):
+        got = fn(q, x, mask, k, metric=metric)
+        want = fn(q, x, mask, k, metric=metric, backend="ref")
+        torch.cuda.synchronize()
+        _assert_topk([a.cpu() for a in got], [a.cpu() for a in want], _atol(Q, X))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_cuda_masked_pq_topk_matches_plain_bit_for_bit(cuda, case):
+    """The kernel sums the LUT entries in the plain version's order."""
+    _, _, luts, codes, plane, k = _case(case)
+    lt, c, m, p = _on(cuda, luts, codes, plane[0], plane)
+    for fn, mask in ((ops.masked_pq_topk, m), (ops.masked_pq_topk_multi, p)):
+        got = fn(lt, c, mask, k)
+        want = fn(lt, c, mask, k, backend="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("kind", ["exact", "adc", "mixed"])
+def test_cuda_unified_equals_split_kernels(cuda, case, kind):
+    Q, X, luts, codes, plane, k = _case(case)
+    fl = _flavors(Q.shape[0], kind)
+    q, x, lt, c, p, f = _on(cuda, Q, X, luts, codes, plane, fl)
+    got = ops.unified_masked_topk(q, x, lt, c, p, f, k)
+    want = ops.unified_masked_topk(q, x, lt, c, p, f, k, backend="ref")
+    torch.cuda.synchronize()
+    _assert_topk([a.cpu() for a in got], [a.cpu() for a in want], _atol(Q, X))
+    # split kernels (forced onto the plane path): the same bits per row
+    rows = torch.arange(q.shape[0], dtype=torch.int32, device=cuda)
+    ex = kmasked.masked_exact_topk(q, x, p.to(torch.uint8), rows, k)
+    pq = kmasked.masked_pq_topk(lt, c, p.to(torch.uint8), rows, k)
+    assert torch.equal(got[0], torch.where(f[:, None], pq[0], ex[0]))
+    assert torch.equal(got[1], torch.where(f[:, None], pq[1], ex[1]))
+
+
+def test_cuda_dedup_reads_unique_rows(cuda):
+    Q, X, luts, codes, plane, k = _case("chunks")
+    unique, idx = _dedup(plane, 5)
+    q, x, lt, c, u, i = _on(cuda, Q, X, luts, codes, unique, idx)
+    fl = torch.as_tensor(_flavors(Q.shape[0], "mixed")).to(cuda)
+    dense = ops.expand_mask_plane(u, i)
+    for dedup, multi in (
+        (lambda: ops.masked_exact_topk_dedup(q, x, u, i, k),
+         lambda: ops.masked_exact_topk_multi(q, x, dense, k)),
+        (lambda: ops.masked_pq_topk_dedup(lt, c, u, i, k),
+         lambda: ops.masked_pq_topk_multi(lt, c, dense, k)),
+        (lambda: ops.unified_masked_topk_dedup(q, x, lt, c, u, i, fl, k),
+         lambda: ops.unified_masked_topk(q, x, lt, c, dense, fl, k)),
+    ):
+        a, b = dedup(), multi()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_cuda_exact_topk_ties(cuda):
+    Q = torch.zeros((1, 1), device=cuda)
+    X = torch.tensor([[2.0], [1.0], [1.0], [1.0], [3.0], [1.0]], device=cuda).repeat(11, 1)
+    _, gi = ops.exact_topk(Q, X, 4)
+    assert gi.cpu().tolist() == [[1, 2, 3, 5]]
+
+
+def test_cuda_concurrent_exact_and_adc_launches(cuda):
+    """Executors launch from several threads at once, exact-only calls (a
+    small shared-memory tile) beside ADC calls (a large one, m = 32,
+    K = 256): every call still launches and gives its single-thread bits."""
+    import threading
+
+    rng = np.random.default_rng(7)
+    n, d, m, kc = 4096, 128, 32, 256
+    q, x, lt, c, p = _on(
+        cuda,
+        rng.normal(size=(8, d)).astype(np.float32),
+        rng.normal(size=(n, d)).astype(np.float32),
+        rng.random((8, m, kc)).astype(np.float32),
+        rng.integers(0, kc, size=(n, m)).astype(np.uint8),
+        rng.random((8, n)) < 0.5,
+    )
+    calls = (lambda: ops.masked_exact_topk_multi(q, x, p, 40),
+             lambda: ops.masked_pq_topk_multi(lt, c, p, 160))
+    want = []
+    for fn in calls:
+        want.append(fn())
+    torch.cuda.synchronize()
+    errors = []
+
+    def worker(tid):
+        try:
+            for i in range(40):
+                j = (tid + i) % 2
+                got = calls[j]()
+                torch.cuda.current_stream().synchronize()
+                if not (torch.equal(got[0], want[j][0]) and torch.equal(got[1], want[j][1])):
+                    errors.append(f"thread {tid} call {i}: results differ")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"thread {tid}: {e!r}")
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:3]
