@@ -43,18 +43,35 @@ no result line):
 6. A small-shard catalog (131,072 x 128, 32 shards of 4,096 rows, PQ
    m = 32): PQScan, the ADC plane and the unified mixed-flavor batch,
    against ``force_split_flavors`` bit for bit; recall@10 of 0.90.
+7. Quantized ExactScans on the phase-6 catalog (before any refresh): a
+   ``price < 900`` probe (9 %: ExactScan on every 4,096-row shard, where
+   the planner gives ExactScan its scan dtype) and batches of ten distinct
+   ``price < 90..900`` predicates, 10 calls of 100 queries each, with
+   ``scan_dtype`` bf16 and int8 (the bf16 / int8 scan at
+   ``quant_guard_pool(k)``, then the full-precision ``gather_rerank``
+   guard); recall@10 against the plain f32 masked op of 0.99.
+8. Refresh of the 1M index: one of the 16 base files is deleted (62,500
+   rows, about 6 % of a shard, under the 0.20 rebuild ratio) and
+   ``compact_tail`` folds the 65,536 tail rows into the shards through
+   ``refresh_index`` (tombstones plus ``insert_batch``); no deleted row
+   may come back, the counts must equal the rows deleted and appended, and
+   10 unfiltered probe calls must reach recall@10 0.90 over the live rows.
+
+Phase 2 also holds the quantized scans (bf16 and int8, row mask and
+dedup'd plane, stored against fresh quantization) and the dense
+``pq_scan`` (bit for bit) against their plain versions.
 
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
-them after; each of the eight kernels must have run on these paths.  The
-line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+them after; each kernel but ``pq_scan`` must have run on these paths
+(``pq_scan`` has no production caller, in this package or the reference,
+so phase 2 alone holds it).  The line before the last is the ``kernels``
+JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import shutil
 import subprocess
 import sys
@@ -68,8 +85,10 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 and int8 on the tensor cores, and HBM3 bandwidth
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 MASKED_CU = "src/repro_torch/kernels/csrc/masked_topk.cu"
@@ -86,7 +105,15 @@ KERNELS = {
     "masked_pq_topk": (MASKED_CU, f"{MASKED_PY}:406"),
     "masked_pq_topk_multi": (MASKED_CU, f"{MASKED_PY}:590"),
     "unified_masked_topk": (MASKED_CU, f"{MASKED_PY}:539"),
+    "masked_exact_topk_bf16": (MASKED_CU, f"{MASKED_PY}:304"),
+    "masked_exact_topk_int8": (MASKED_CU, f"{MASKED_PY}:289"),
+    "masked_exact_topk_multi_bf16": (MASKED_CU, f"{MASKED_PY}:372"),
+    "masked_exact_topk_multi_int8": (MASKED_CU, f"{MASKED_PY}:357"),
+    "pq_scan": ("src/repro_torch/kernels/csrc/pq_scan.cu", "src/repro/kernels/pq_scan.py:74"),
 }
+# no production caller in either package: held in phase 2 only
+PHASE2_ONLY = ("pq_scan",)
+QUANT = {"bf16": PEAK_BF16, "int8": PEAK_INT8}  # scan dtype -> peak operation rate
 # the unfiltered build and probe of phase 3
 MAIN_KERNELS = ("rerank_distances", "gather_rerank", "kmeans_assign")
 PRICE_MAX = 10_000  # the price attribute is uniform on [0, PRICE_MAX)
@@ -112,8 +139,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32) -> tuple:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -461,18 +488,20 @@ def _masked_checks(torch, ops, q, x, luts, codes, plane, k, what, metrics=("l2",
     return errs
 
 
-def _masked_bound(q_rows, plane, d, m, kc, k, flavor):
+def _masked_bound(q_rows, plane, d, m, kc, k, flavor, elem=4, peak=PEAK_F32):
     """Least time for a masked top-k: each row that passes for some query
-    read once (D f32 for exact rows, m code bytes for ADC rows), the masks
-    and queries read once, the outputs written once; operations 2 D per
-    passing (query, row) cell for exact, m adds for ADC."""
+    read once (D values of ``elem`` bytes for exact rows, m code bytes for
+    ADC rows), the masks and queries read once, the outputs written once;
+    operations 2 D per passing (query, row) cell for exact at ``peak``, m
+    adds for ADC."""
     cells = plane.sum(1).double()
     rows = int(plane.any(0).sum())
     ex, adc = ~flavor, flavor
     flops = 2 * d * float(cells[ex].sum()) + m * float(cells[adc].sum())
-    nbytes = (4 * d * rows * bool(ex.any()) + m * rows * bool(adc.any()) + plane.shape[1] * q_rows
-              + 4 * d * int(ex.sum()) + 4 * m * kc * int(adc.sum()) + 8 * plane.shape[0] * k)
-    return bound_ms(flops, nbytes)
+    nbytes = (elem * d * rows * bool(ex.any()) + m * rows * bool(adc.any())
+              + plane.shape[1] * q_rows + elem * d * int(ex.sum()) + 4 * m * kc * int(adc.sum())
+              + 8 * plane.shape[0] * k)
+    return bound_ms(flops, nbytes, peak)
 
 
 def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
@@ -579,6 +608,156 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b:.5f} ms ({by}), "
             f"max abs err {err:.3g} (over every check of phase 2: {errs[name]:.3g})")
     del lg
+    return rows
+
+
+def _quant_checks(torch, ops, q, x, plane, k, what, metrics=("l2", "ip")):
+    """Every quantized scan, kernel against plain, on one input: the row
+    mask, the dedup'd plane and the dense plane, on the stored matrix; and
+    f32 points quantized in the call equal the stored ones bit for bit.
+    Returns max errors by launch name."""
+    from repro_torch.kernels import ref
+
+    errs = {}
+    n_q = q.shape[0]
+    uniq = plane[: max(1, n_q // 2)]
+    idx = torch.as_tensor(np.arange(n_q) % uniq.shape[0]).to(q.device)
+    # bf16 sums run in another order than the plain dot, int8 crosses are
+    # exact and scaled once: both within 1e-5 of |q|^2 + |x|^2 (+1 for x = 0)
+    atol = 1e-5 * (_scale(q, x) + 1.0)
+    for dtype in QUANT:
+        stored, x_scale = ref.quantize_points(x, dtype)
+        if not bool(x.any()) and x_scale != 1.0:
+            raise AssertionError(f"{what}: all-zero points quantize with scale {x_scale}, not 1.0")
+        for metric in metrics:
+            for name, fn, args in (
+                (f"masked_exact_topk_{dtype}", ops.masked_exact_topk, (q, stored, plane[0], k)),
+                (f"masked_exact_topk_multi_{dtype}", ops.masked_exact_topk_multi, (q, stored, plane, k)),
+                (f"masked_exact_topk_multi_{dtype}", ops.masked_exact_topk_dedup,
+                 (q, stored, uniq, idx, k)),
+            ):
+                kw = dict(metric=metric, dtype=dtype, x_scale=x_scale)
+                e = _check_topk(torch, fn(*args, **kw), fn(*args, **kw, backend="ref"), atol,
+                                f"{what} {name} {metric}")
+                errs[name] = max(errs.get(name, 0.0), e)
+            a = ops.masked_exact_topk_dedup(q, x, uniq, idx, k, metric=metric, dtype=dtype)
+            b = ops.masked_exact_topk_dedup(q, stored, uniq, idx, k, metric=metric, dtype=dtype,
+                                            x_scale=x_scale)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{what}: {dtype} {metric} fresh quantization differs from stored")
+    return errs
+
+
+def _pq_scan_check(torch, ops, luts, codes, what):
+    """pq_scan against its plain version, bit for bit; returns max |diff|."""
+    got = ops.pq_scan(luts, codes)
+    want = ops.pq_scan(luts, codes, backend="ref")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: pq_scan differs from its plain version")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
+    """The bf16 / int8 masked scans and the dense ``pq_scan`` against their
+    plain versions at the main path's shapes (Q = 100, D = 128, the
+    quantized pool k = quant_guard_pool(40) = 160; ``pq_scan`` at m = 32,
+    K = 256) on one 250k-row shard and on N = 4,096, and at their edge
+    cases; times beside bounds and yardsticks."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.runtime import planner
+
+    rng = np.random.default_rng(seed + 3)
+    errs: dict = {}
+
+    def merge(e):
+        for key, v in e.items():
+            errs[key] = max(errs.get(key, 0.0), v)
+
+    edge = [
+        ("all masked", dict(q=4, n=600, d=16, frac=0.0), 10),
+        ("k > N", dict(q=3, n=7, d=8, frac=1.0), 12),
+        ("k > passing", dict(q=4, n=700, d=16, frac=0.005), 10),
+        ("ties", dict(q=4, n=400, d=8, frac=0.8, ints=True), 12),
+        ("ragged Q/N/D", dict(q=3, n=1301, d=33, frac=0.6), 9),
+        ("Q = 1", dict(q=1, n=1000, d=128, frac=0.5), 40),
+        ("plane, repeated rows", dict(q=37, n=5000, d=64, frac=0.3), 40),
+    ]
+    for what, kw, k in edge:
+        q, x, _l, _c, plane = _masked_case(torch, dev, rng, m=8, kc=16, **kw)
+        merge(_quant_checks(torch, ops, q, x, plane, k, what))
+    q, x, _l, _c, plane = _masked_case(torch, dev, rng, 5, 300, 16, 0.7, m=8, kc=16)
+    merge(_quant_checks(torch, ops, q, torch.zeros_like(x), plane, 10, "all-zero points"))
+    for qn, n, m, kc in [(5, 700, 8, 256), (1, 1, 4, 16), (9, 2049, 3, 7), (3, 4097, 32, 256)]:
+        _pq_scan_check(torch, ops, torch.rand((qn, m, kc), device=dev),
+                       torch.as_tensor(rng.integers(0, kc, size=(n, m)).astype(np.uint8)).to(dev),
+                       f"pq_scan edge Q={qn} N={n} m={m} K={kc}")
+    log(f"quantized scans and pq_scan: {len(edge) + 5} edge cases match their plain versions")
+
+    Q, D, M, KC = 100, 128, 32, 256
+    k = planner.quant_guard_pool(40)
+    thresholds = (2, 3, 4, 5, 6, 100, 325, 550, 775, 1000)
+    for n in (4096, shard_n):
+        q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, n, D, 0.0, m=M, kc=KC)
+        price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=n)).to(dev)
+        uniq = torch.stack([price < t for t in thresholds])
+        idx = torch.as_tensor(np.arange(Q) % uniq.shape[0]).to(dev)
+        merge(_quant_checks(torch, ops, q, x, uniq[idx], k, f"main shape N={n}", metrics=("l2",)))
+        pq_err = _pq_scan_check(torch, ops, luts, codes, f"pq_scan main shape N={n}")
+    # the last (one-shard) inputs are timed; pq_err is their pq_scan check's
+    wide = price < 5000
+    none = torch.zeros(Q, dtype=torch.bool, device=dev)
+    rows = {}
+    for dtype, peak in QUANT.items():
+        stored, x_scale = ref.quantize_points(x, dtype)
+        qs, q_scale = ref.quantize_points(q, dtype)
+        elem = 2 if dtype == "bf16" else 1
+
+        def lib(mask, stored=stored, qs=qs, dtype=dtype, x_scale=x_scale, q_scale=q_scale):
+            if dtype == "int8":
+                cross = torch._int_mm(qs, stored.T).float() * (q_scale * x_scale)
+                xf, qf = stored.float() * x_scale, qs.float() * q_scale
+            else:
+                cross = torch.mm(qs, stored.T).float()
+                xf, qf = stored.float(), qs.float()
+            d = (qf * qf).sum(1, keepdim=True) - 2 * cross + (xf * xf).sum(1)[None, :]
+            return torch.topk(d.masked_fill_(~mask, float("inf")), k, dim=1, largest=False)
+
+        cases = {
+            f"masked_exact_topk_{dtype}": (
+                lambda b, s=stored, xs=x_scale, dt=dtype: ops.masked_exact_topk(
+                    q, s, wide, k, backend=b, dtype=dt, x_scale=xs),
+                lambda lib=lib: lib(wide), 1, wide[None, :].expand(Q, -1),
+                f"Q=100 N={shard_n} D=128 k={k} mask 50%"),
+            f"masked_exact_topk_multi_{dtype}": (
+                lambda b, s=stored, xs=x_scale, dt=dtype: ops.masked_exact_topk_dedup(
+                    q, s, uniq, idx, k, backend=b, dtype=dt, x_scale=xs),
+                lambda lib=lib: lib(uniq[idx]), uniq.shape[0], uniq[idx],
+                f"Q=100 N={shard_n} D=128 k={k} plane of 10 price masks"),
+        }
+        atol = 1e-5 * _scale(q, x)
+        for name, (fn, yard, q_rows, plane, shape) in cases.items():
+            err = _check_topk(torch, fn("auto"), fn("ref"), atol, f"timed {name}")
+            ms = time_ms(torch, lambda: fn("auto"))
+            plain = time_ms(torch, lambda: fn("ref"), reps=5, warmup=1)
+            lib_ms = time_ms(torch, yard, reps=5, warmup=1)
+            b, by = _masked_bound(q_rows, plane, D, M, KC, k, none, elem=elem, peak=peak)
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                              bound_ms=b, bound_by=by, shape=shape)
+
+    lg = codes.T.long()[None].expand(Q, M, shard_n)
+    ms = time_ms(torch, lambda: ops.pq_scan(luts, codes))
+    plain = time_ms(torch, lambda: ops.pq_scan(luts, codes, backend="ref"), reps=5, warmup=1)
+    lib_ms = time_ms(torch, lambda: torch.gather(luts, 2, lg).sum(1), reps=5, warmup=1)
+    b, by = bound_ms(Q * shard_n * M, 4 * Q * shard_n + M * shard_n + 4 * Q * M * KC)
+    rows["pq_scan"] = dict(max_abs_err=pq_err, ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b,
+                           bound_by=by, shape=f"Q=100 N={shard_n} m=32 K=256, (Q, N) out")
+    del lg
+    for name, r in rows.items():
+        lib_s = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib_s}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
+            f"{r['max_abs_err']:.3g} (over every check of phase 2: {errs.get(name, 0.0):.3g})")
     return rows
 
 
@@ -915,8 +1094,9 @@ def phase_small_shards(torch, ctx, small_n: int, seed: int):
     cluster = ctx["cluster"]
     coord = cluster.coordinator
     rng = np.random.default_rng(seed + 6)
-    data = mixture(small_n + 100, 128, rng)
-    X2, Q2 = data[:small_n], data[small_n:]
+    # 1,000 queries: the first 100 for this phase, all of them for phase 7
+    data = mixture(small_n + 1000, 128, rng)
+    X2, Q2 = data[:small_n], data[small_n : small_n + 100]
     price = rng.integers(0, PRICE_MAX, size=small_n).astype(np.int64)
     shards = -(-small_n // SMALL_SHARD)
     t2 = LakehouseTable(cluster.catalog, "small")
@@ -936,6 +1116,7 @@ def phase_small_shards(torch, ctx, small_n: int, seed: int):
     dev = ctx["device"]
     x_dev, price_dev = torch.as_tensor(X2).to(dev), torch.as_tensor(price).to(dev)
     stats = dict(build_s=build_s, shards=len(sizes))
+    ctx["small"] = dict(table=t2, X=X2, Q=data[small_n:], price=price)
 
     def check(what, report, thr, floor=0.90):
         got = hit_rows(t2, report.hits, SMALL_SHARD, expect=_expect(price, thr))
@@ -1001,13 +1182,170 @@ def phase_small_shards(torch, ctx, small_n: int, seed: int):
     return total, stats
 
 
+# -- phases 7 and 8 ---------------------------------------------------------------
+
+def phase_quantized(torch, ctx, n_calls: int):
+    """Quantized ExactScans on the phase-6 catalog: a 9 % predicate on
+    every 4,096-row shard, and batches of ten distinct 0.9-9 % predicates,
+    with ``scan_dtype`` bf16 and int8.  The planner plans a scan dtype only
+    on ExactScan ops, and only shards of at most EXACT_SCAN_MAX_ROWS rows
+    get one (a selective predicate on a bigger shard plans MaskedBeam, and a
+    MaskedBeam that collapses to ExactScan scores f32, as in the
+    reference), so these are the shards where the quantized scans run."""
+    from repro_torch.kernels import ops
+
+    coord = ctx["cluster"].coordinator
+    sm = ctx["small"]
+    t2, X2, Qs, price = sm["table"], sm["X"], sm["Q"], sm["price"]
+    dev = ctx["device"]
+    nq = n_calls * 100
+    x_dev, price_dev = torch.as_tensor(X2).to(dev), torch.as_tensor(price).to(dev)
+    thr = np.array([90 * (j + 1) for j in range(10)])
+    preds = [f"price < {t}" for t in thr]
+    row_index = np.arange(nq) % len(preds)
+    truth_one = _truth(torch, ops, x_dev, Qs[:nq], (price_dev < 900)[None], np.zeros(nq, np.int64))
+    truth_batch = _truth(torch, ops, x_dev, Qs[:nq], torch.stack([price_dev < int(t) for t in thr]),
+                         row_index)
+    total, stats = {}, {}
+    for dt in QUANT:
+        reps, secs, launches = _run(torch, f"phase 7 probe(filter='price < 900', scan_dtype={dt!r})", [
+            (lambda c=c: coord.probe("small", Qs[c * 100 : (c + 1) * 100], 10, strategy="diskann",
+                                     filter="price < 900", scan_dtype=dt)) for c in range(n_calls)])
+        _add(total, launches)
+        ops_ = [op for per in reps[0].plan.ops for op in per.values()]
+        if not ops_ or any(type(op).__name__ != "ExactScan" or op.dtype != dt for op in ops_):
+            raise AssertionError(f"price < 900 ({dt}): expected {dt} ExactScan on every shard, "
+                                 f"got {ops_[:3]}")
+        got = hit_rows(t2, [h for r in reps for h in r.hits], SMALL_SHARD,
+                       expect=_expect(price, np.full(nq, 900)))
+        if not _passes(price, got, np.full(nq, 900)):
+            raise AssertionError(f"price < 900 ({dt}): a hit fails the predicate")
+        recall = _recall(got, truth_one)
+        log(f"  price < 900 ({dt}): recall@10 {recall:.4f} over {nq} queries, {nq / secs:.1f} QPS")
+        _need(launches, [f"masked_exact_topk_{dt}", "gather_rerank"], f"price < 900 ({dt})")
+        if recall < 0.99:
+            raise AssertionError(f"price < 900 ({dt}): recall@10 {recall:.4f} < 0.99")
+        reps, secs_b, launches = _run(torch, f"phase 7 probe_batch(10 predicates, {dt})", [
+            (lambda c=c: coord.probe_batch("small", Qs[c * 100 : (c + 1) * 100], 10,
+                                           strategy="diskann", scan_dtype=dt,
+                                           filter=[preds[i % len(preds)] for i in range(100)]))
+            for c in range(n_calls)])
+        _add(total, launches)
+        got = hit_rows(t2, [h for r in reps for h in r.hits], SMALL_SHARD,
+                       expect=_expect(price, thr[row_index]))
+        if not _passes(price, got, thr[row_index]):
+            raise AssertionError(f"probe_batch ({dt}): a hit fails its query's predicate")
+        r_batch = _recall(got, truth_batch)
+        log(f"  probe_batch ({dt}): recall@10 {r_batch:.4f} (every row ExactScan), "
+            f"{nq / secs_b:.1f} QPS")
+        _need(launches, [f"masked_exact_topk_multi_{dt}"], f"probe_batch ({dt})")
+        if r_batch < 0.99:
+            raise AssertionError(f"probe_batch ({dt}) recall@10 {r_batch:.4f} < 0.99")
+        stats[dt] = dict(seconds=secs, recall=recall, batch_seconds=secs_b, recall_batch=r_batch)
+    del x_dev
+    return total, stats
+
+
+def _time_beam_capture(torch, dev, n: int) -> float:
+    """Seconds to build a beam runner at one shard's size (the insert's and
+    the probes' batch of 64, L = 100): on a card that captures 8 steps as a
+    CUDA graph, which a new device adjacency forces once per insert."""
+    from repro_torch.core.vamana import _Beam
+
+    vec = torch.randn((n, 128), device=dev)
+    adj = torch.randint(0, n, (n, 64), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _Beam(vec, adj, n, 0, (64, 128), 100, 138, "l2", False)
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def phase_refresh(torch, ctx, n_calls: int):
+    """Delete one base file and fold the tail into the 1M index through
+    ``compact_tail`` -> ``refresh_index``; then unfiltered probes over the
+    live rows."""
+    from repro_torch.core.vamana import brute_force_topk
+
+    cluster, table = ctx["cluster"], ctx["table"]
+    coord = cluster.coordinator
+    X, Q, T, rpg = ctx["X"], ctx["Q"], ctx["T"], ctx["rows_per_group"]
+    XT = np.concatenate([X, T])
+    files = table.current_files()
+    starts, base = {}, 0
+    for f in files:
+        starts[f.path] = (base, f.record_count)
+        base += f.record_count
+    base_files = [f for f in files if "tail" not in f.path]
+    doomed = base_files[len(base_files) // 2]
+    table.delete_files([doomed.path])
+    per_shard = []
+    for ex in cluster.executors:  # record each shard's refresh as it returns
+
+        def wrapped(task, _f=ex._refresh_shard):
+            r = _f(task)
+            per_shard.append(r)
+            return r
+
+        ex._refresh_shard = wrapped
+    try:
+        reps, secs, launches = _run(torch, "phase 8 compact_tail (refresh_index)", [
+            lambda: coord.compact_tail("sift", "idx")])
+    finally:
+        for ex in cluster.executors:
+            del ex._refresh_shard  # the class's method again
+    rr = reps[0]
+    if rr is None:
+        raise AssertionError("compact_tail did not refresh (no tail, or under its threshold)")
+    for r in sorted(per_shard, key=lambda r: r.shard_id):
+        log(f"  shard {r.shard_id}: {r.refresh_seconds:.2f} s, inserted {r.inserted}, tombstoned "
+            f"{r.tombstoned}, rows {r.vector_count}, tombstone ratio {r.tombstone_ratio:.4f}")
+    log(f"  refresh: {rr.seconds:.2f} s in all, inserted {rr.inserted}, tombstoned "
+        f"{rr.tombstoned}, shards refreshed {rr.shards_refreshed}, rebuilt {rr.shards_rebuilt}")
+    if rr.inserted != T.shape[0] or rr.tombstoned != doomed.record_count:
+        raise AssertionError(f"refresh inserted {rr.inserted} (expected {T.shape[0]}) and "
+                             f"tombstoned {rr.tombstoned} (expected {doomed.record_count})")
+    if rr.shards_rebuilt:
+        raise AssertionError(f"{rr.shards_rebuilt} shards rebuilt under the 0.20 ratio")
+    _need(launches, ["kmeans_assign"], "refresh")
+    capture = _time_beam_capture(torch, ctx["device"], X.shape[0] // 4)
+    log(f"  beam runner capture at one shard's size (once per insert_batch): {capture:.3f} s")
+
+    nq = n_calls * 100
+    preps, psecs, plaunches = _run(torch, "phase 8 probe (refreshed index)", [
+        (lambda c=c: coord.probe("sift", Q[c * 100 : (c + 1) * 100], 10, strategy="diskann"))
+        for c in range(n_calls)])
+    _add(launches, plaunches)
+    hits = [h for r in preps for h in r.hits]
+    if any(h.file_path == doomed.path for hs in hits for h in hs):
+        raise AssertionError("a row of the deleted file was returned")
+    for r in preps:
+        if r.tail_rows or r.unindexed_rows:
+            raise AssertionError(f"after compaction: tail_rows {r.tail_rows}, unindexed "
+                                 f"{r.unindexed_rows}")
+    live = np.concatenate([XT[starts[f.path][0] : starts[f.path][0] + starts[f.path][1]]
+                           for f in table.current_files()])
+    got = hit_rows(table, hits, rpg)
+    truth = np.empty((nq, 10), np.int64)
+    for s0 in range(0, nq, 1000):
+        truth[s0 : s0 + 1000] = brute_force_topk(live, Q[s0 : min(s0 + 1000, nq)], 10)[1]
+    recall = _recall(got, truth)
+    log(f"  refreshed probe: recall@10 {recall:.4f} over {nq} queries against {live.shape[0]} "
+        f"live rows, {nq / psecs:.1f} QPS")
+    _need(plaunches, ["gather_rerank", "rerank_distances"], "refreshed probe")
+    if recall < 0.90:
+        raise AssertionError(f"recall@10 {recall:.4f} < 0.90 after the refresh")
+    return launches, dict(refresh_s=rr.seconds, per_shard_s=[r.refresh_seconds for r in per_shard],
+                          beam_capture_s=capture, recall=recall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--filtered-calls", type=int, default=10,
-                    help="probe calls of 100 queries per filtered row (phases 4 and 5)")
+                    help="probe calls of 100 queries per filtered row (phases 4, 5, 7 and 8)")
     ap.add_argument("--small-n", type=int, default=131_072,
                     help="rows of the small-shard catalog of phase 6")
     args = ap.parse_args()
@@ -1032,6 +1370,8 @@ def main() -> int:
     smi = timed("1 environment + build", phase_environment, torch)
     rows = timed("2 kernels", phase_kernels, torch, dev, args.n // 4, args.seed)
     rows.update(timed("2 masked kernels", phase_masked_kernels, torch, dev, args.n // 4, args.seed))
+    rows.update(timed("2 quantized scans + pq_scan", phase_quant_kernels, torch, dev, args.n // 4,
+                      args.seed))
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, main, ctx = timed(
@@ -1044,14 +1384,19 @@ def main() -> int:
         per_phase["5"] = got
         got, _stats = timed("6 small shards", phase_small_shards, torch, ctx, args.small_n, args.seed)
         per_phase["6"] = got
+        got, _stats = timed("7 quantized", phase_quantized, torch, ctx, args.filtered_calls)
+        per_phase["7"] = got
+        got, _stats = timed("8 refresh", phase_refresh, torch, ctx, args.filtered_calls)
+        per_phase["8"] = got
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}
     log(f"launches by phase: {per_phase}")
     log(f"phase seconds: { {k: round(v, 2) for k, v in phase_s.items()} }")
     for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on phases 3-6")
+        # pq_scan has no production caller (in either package): phase 2 holds it
+        if count == 0 and name not in PHASE2_ONLY:
+            raise AssertionError(f"kernel {name} was not launched on phases 3-8")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -3,8 +3,8 @@
 Port of ``repro/core/pq.py``.  The codebook is a plain ``(m, K, D/m)``
 float32 numpy array in both packages; codes are ``(N, m)`` uint8.
 Encoding runs the ``kmeans_assign`` kernel once per subquantizer on the
-card (the reference pins its plain version).  The dense ADC scan
-(``adc_scores``, the ``pq_scan`` kernel) is not ported yet.
+card (the reference pins its plain version).  :func:`adc_scores` is the
+dense ADC scan (the ``pq_scan`` kernel on the card).
 """
 
 from __future__ import annotations
@@ -128,3 +128,18 @@ def build_luts(pq: PQCodebook, queries, *, device="cuda") -> torch.Tensor:
         queries.to(device=dev, dtype=torch.float32), to_device(pq.codebook, dev), pq.metric
     )
 
+
+def adc_scores(
+    pq: PQCodebook,
+    queries,
+    codes,
+    *,
+    backend: str = "auto",
+    device="cuda",
+) -> torch.Tensor:
+    """Full ADC scan: (Q, N) approximate distances on ``device``."""
+    dev = resolve_device(device)
+    luts = build_luts(pq, queries, device=dev)
+    if isinstance(codes, np.ndarray):
+        codes = to_device(codes, dev, torch.uint8)
+    return ops.pq_scan(luts, codes.to(dev), backend=backend)

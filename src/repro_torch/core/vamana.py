@@ -1,6 +1,6 @@
 """Vamana / DiskANN graph index (paper §2.2, §5–§7) — PyTorch port.
 
-Port of ``repro/core/vamana.py`` without ``insert_batch``.  The graph keeps the
+Port of ``repro/core/vamana.py``.  The graph keeps the
 reference's layout: a dense padded adjacency ``(cap, R)`` (-1 pad), host
 numpy arrays as the state of record, invalid ids == ``cap`` inside the
 search.  The jitted jnp primitives become batched torch code on
@@ -12,7 +12,9 @@ search.  The jitted jnp primitives become batched torch code on
   evaluates, for the single admit pass of the masked search;
 - :func:`_robust_prune` — the vectorized α-RNG prune;
 - the reverse-edge scatter (the reference's per-edge Python loop) is
-  vectorized to the same result, see :func:`_reverse_edge_scatter`.
+  vectorized to the same result, see :func:`_reverse_edge_scatter`, and
+  :func:`_link_reverse` adds it to the re-prune of overflowing nodes (the
+  build's and the insert's shared last step).
 
 Every sort the reference takes with ``jnp.argsort`` (stable) is a stable
 ``torch.sort``.  Ids are int64 inside (torch indexes with int64) and int32
@@ -23,14 +25,14 @@ Entry points: :func:`build_vamana`, :meth:`VamanaGraph.search`,
 visited through the ``gather_rerank`` kernel), :meth:`VamanaGraph.tombstone`,
 :func:`graph_from_arrays` (carry a reference graph into the port),
 :meth:`VamanaGraph.search_masked` (the predicate-aware traversal of
-filtered probes), :func:`brute_force_topk`, :func:`recall_at_k`.
-``insert_batch`` arrives with the refresh slice.
+filtered probes), :meth:`VamanaGraph.insert_batch` (the refresh's greedy
+insert), :func:`brute_force_topk`, :func:`recall_at_k`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -400,13 +402,6 @@ def _reverse_edge_scatter(
     return tgt[~fits], src[~fits]
 
 
-def _overflow_dict(tgt: torch.Tensor, src: torch.Tensor) -> Dict[int, List[int]]:
-    out: Dict[int, List[int]] = {}
-    for t, s in zip(tgt.tolist(), src.tolist()):
-        out.setdefault(int(t), []).append(int(s))
-    return out
-
-
 # rows repruned per call: bounds the (rows, C, D) candidate gather
 REPRUNE_CHUNK = 16384
 
@@ -450,6 +445,22 @@ def _reprune(
 # ---------------------------------------------------------------------------
 # Graph object (host arrays of record; device copies via device_cache)
 # ---------------------------------------------------------------------------
+
+
+def _link_reverse(
+    vectors: torch.Tensor,
+    adjacency: torch.Tensor,
+    src_ids: torch.Tensor,
+    nbrs: torch.Tensor,
+    n: int,
+    params: VamanaParams,
+) -> None:
+    """Add the reverse edges of a batch whose rows ``src_ids`` got
+    ``nbrs``, then robust-prune every node that overflowed (the reference's
+    ``_add_reverse_edges`` with its ``_reprune_nodes``), in place on the
+    device arrays."""
+    tgt, src = _reverse_edge_scatter(adjacency, src_ids, nbrs)
+    _reprune(vectors, adjacency, tgt, src, n, params)
 
 
 def _round_capacity(n: int) -> int:
@@ -597,7 +608,8 @@ class VamanaGraph:
         calls (on a card it holds the captured CUDA graph); rebuilt when the
         device copies it reads were replaced."""
         beams = self.__dict__.setdefault("_beams", {})
-        key = (masked, use_pq, q_shape, L, max_iters)
+        # a runner holds the row count and entry it was built for
+        key = (masked, use_pq, q_shape, L, max_iters, self.n, self.medoid)
         beam = beams.get(key)
         if beam is None or beam.vectors is not data or beam.adjacency is not adj:
             beam = (_MaskedBeam if masked else _Beam)(
@@ -691,36 +703,62 @@ class VamanaGraph:
         return out_d, out_i
 
     # -- mutation -----------------------------------------------------------------
-    def _add_reverse_edges(self, src_ids: np.ndarray, nbrs: np.ndarray) -> None:
-        """Scatter reverse edges into the host adjacency, robust-pruning the
-        nodes that overflow (host-array form of the build's device path)."""
-        adj = torch.as_tensor(self.adjacency).to(self.device, torch.int64)
-        tgt, src = _reverse_edge_scatter(
-            adj,
-            torch.as_tensor(np.asarray(src_ids, np.int64), device=self.device),
-            torch.as_tensor(np.asarray(nbrs, np.int64), device=self.device),
+    def _ensure_capacity(self, extra: int) -> None:
+        """Grow the padded arrays (to the next power-of-two capacity) so
+        ``extra`` more rows fit.  The new arrays are new objects, so every
+        cached device copy and beam runner is rebuilt from them."""
+        need = self.n + extra
+        cap = self.vectors.shape[0]
+        if need <= cap:
+            return
+        grow = _round_capacity(need) - cap
+        self.vectors = np.concatenate([self.vectors, np.zeros((grow, self.dim), np.float32)])
+        self.adjacency = np.concatenate(
+            [self.adjacency, np.full((grow, self.params.R), -1, np.int32)]
         )
-        self.adjacency[:] = adj.cpu().numpy()
-        device_cache.drop_cached(self, "_device_adjacency")
-        if tgt.numel():
-            self._reprune_nodes(_overflow_dict(tgt, src))
+        self.tombstones = np.concatenate([self.tombstones, np.zeros(grow, bool)])
+        if self.pq_codes is not None:
+            self.pq_codes = np.concatenate([self.pq_codes, np.zeros((grow, self.pq.m), np.uint8)])
 
-    def _reprune_nodes(self, overflow: dict) -> None:
-        """Batch robust-prune nodes whose degree exceeded R."""
-        nodes = sorted(overflow)
-        tgt = [t for t in nodes for _ in overflow[t]]
-        src = [s for t in nodes for s in overflow[t]]
-        adj = torch.as_tensor(self.adjacency).to(self.device, torch.int64)
-        _reprune(
-            device_cache.device_padded_vectors(self),
-            adj,
-            torch.as_tensor(tgt, dtype=torch.int64, device=self.device),
-            torch.as_tensor(src, dtype=torch.int64, device=self.device),
-            self.n,
-            self.params,
-        )
-        self.adjacency[:] = adj.cpu().numpy()
+    def insert_batch(self, new_vectors: np.ndarray, batch: int = 64) -> np.ndarray:
+        """Greedy insert (paper §7.2), as the reference: for each batch of
+        ``batch`` new points, a full-precision beam search from the medoid,
+        a robust prune into the points' rows, then the reverse edges with a
+        re-prune of the nodes that overflow.  ``n`` keeps its pre-insert
+        value until the end, so the new points are invisible to the searches
+        and to the forward prunes.  Returns the assigned ids.
+
+        One device copy of the adjacency serves the whole insert (the beam
+        runner reads it in place) and the host array is written once at the
+        end, instead of a round trip of the (cap, R) array per batch."""
+        new_vectors = np.ascontiguousarray(new_vectors, dtype=np.float32)
+        count = new_vectors.shape[0]
+        self._ensure_capacity(count)
+        n0, p = self.n, self.params
+        ids = np.arange(n0, n0 + count, dtype=np.int64)
+        self.vectors[n0 : n0 + count] = new_vectors
+        if self.pq is not None:
+            self.pq_codes[n0 : n0 + count] = encode(self.pq, new_vectors, device=self.device)
+        # the f32 copy cached at this n lacks the new rows, which the
+        # re-prune reads (it may keep a new point as a reverse neighbour)
+        device_cache.drop_cached(self, "_device_vectors_f32")
+        vec_t = device_cache.device_padded_vectors(self)
+        adj_t = torch.as_tensor(self.adjacency).to(self.device, torch.int64)
+        ids_t = torch.as_tensor(ids, device=self.device)
+        max_iters = int(1.3 * p.L) + 8
+        for s, cnt, qb in self._batches(new_vectors, batch):
+            with device_cache.device_lock(self.device):
+                beam = self._beam(vec_t, adj_t, tuple(qb.shape), p.L, max_iters, False)
+                pool_ids, _pd, vis_ids, _vd = beam.run(qb)
+                cand = torch.cat([pool_ids, vis_ids], dim=1)
+                nbrs = _robust_prune(vec_t, qb, cand, n0, p.R, p.alpha, p.metric)[:cnt]
+                sel = ids_t[s : s + cnt]
+                adj_t[sel] = nbrs
+                _link_reverse(vec_t, adj_t, sel, nbrs, n0, p)
+        self.adjacency[:] = adj_t.cpu().numpy()
         device_cache.drop_cached(self, "_device_adjacency")
+        self.n = n0 + count
+        return ids
 
     def tombstone(self, ids: np.ndarray) -> None:
         self.tombstones[np.asarray(ids, dtype=np.int64)] = True
@@ -871,8 +909,7 @@ def build_vamana(
                     vec_t, qb, cand, n, params.R, alpha, params.metric
                 )[: sel.shape[0]]
                 adj_t[sel] = nbrs
-                tgt, src = _reverse_edge_scatter(adj_t, sel, nbrs)
-                _reprune(vec_t, adj_t, tgt, src, n, params)
+                _link_reverse(vec_t, adj_t, sel, nbrs, n, params)
     graph.adjacency[:] = adj_t.cpu().numpy()
     if with_pq:
         m = pq_m if pq_m is not None else max(1, d // 16)

@@ -11,7 +11,11 @@ and a dispatching public wrapper in :mod:`repro_torch.kernels.ops`:
   encoding, shard ownership), ``csrc/kmeans_assign.cu``
 - ``masked_exact_topk`` / ``masked_pq_topk`` / ``unified_masked_topk`` —
   masked exact, PQ-ADC and mixed-flavor top-k (filtered Stage A, the fresh
-  tail), ``csrc/masked_topk.cu``
+  tail), ``csrc/masked_topk.cu``; the exact scan also in bf16 and int8
+  (the quantized ExactScan ahead of the full-precision guard)
+- ``pq_scan``          — dense PQ-ADC score matrix (``core/pq.adc_scores``),
+  ``csrc/pq_scan.cu``; ``ops.pq_scan`` / ``ops.pq_scan_topk`` (not
+  re-exported here: the name is its wrapper module's)
 
 The CUDA sources build on first use (:mod:`repro_torch.kernels._build`);
 importing this package builds nothing.

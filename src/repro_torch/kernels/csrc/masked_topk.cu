@@ -12,6 +12,14 @@
 //   PQ-ADC scores sum_j lut[q, j, codes[n, j]].
 // - unified_masked_topk replaces unified_masked_topk_pallas (body
 //   _unified_kernel): each query scored by its own flavor, one launch.
+// - masked_exact_topk_bf16 / _int8 (and their _multi forms) replace the
+//   reduced-precision scans of masked_exact_topk_pallas and
+//   masked_exact_topk_multi_pallas: bf16 (_masked_exact_kernel on bf16
+//   inputs) loads bf16 and multiplies and adds in f32, the norms from the
+//   upcast values; int8 (_masked_exact_q_kernel) sums the int8 x int8
+//   cross in int32 (__dp4a on four packed values) and multiplies it by
+//   q_scale * x_scale afterwards, and the norms are f32 sums of the squared
+//   dequantized values (x * scale), as masked_topk.py:217-231 computes them.
 //
 // The three share all device code: the masked expanded-form distance tile,
 // the ADC row score and the chunked top-k select and merge.  A score depends
@@ -57,10 +65,14 @@
 // Bound on this card.  Exact: 2 Q N D operations against 4 N D bytes of
 // points, so operations at Q = 100 (0.096 ms at 67 TFLOP/s for N = 250k,
 // D = 128, against 0.038 ms for the bytes).  ADC: m adds per (query, row)
-// against N m code bytes read; bytes at the main-path shapes.  This first
+// against N m code bytes read; bytes at the main-path shapes.  bf16 and
+// int8: the same operations, which the tensor cores would run at 989 and
+// 1,979 TOP/s, so their bound is the 2 or 1 bytes a value of the points
+// (here they run on the SIMT units, int8 four products a __dp4a).  This first
 // version is simple rather than fast: the argmin rounds cost k CN / 32 steps
 // per warp and query, and the exact tiles run at SIMT rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -82,10 +94,14 @@ constexpr int EXACT_SMEM = TQ * CN * 4;  // an exact tile's (TQ, CN) scores
 constexpr int CHUNK_SMEM = ADC_SMEM > EXACT_SMEM ? ADC_SMEM : EXACT_SMEM;
 constexpr int MERGE_SMEM = MAX_SMEM - 1024;  // leaves room for the static arrays
 static_assert((TQ / TM) * (BN / TN) == THREADS, "one register block per thread");
+static_assert(BK % 4 == 0, "int8 stages pack four features a word");
+
+// element kinds of the exact flavor's queries and points
+constexpr int F32 = 0, BF16 = 1, INT8 = 2;
 
 struct Args {
-  const float* q;          // (Q, D) queries (exact flavor)
-  const float* x;          // (N, D) points
+  const void* q;           // (Q, D) queries (exact flavor): f32, bf16 or int8
+  const void* x;           // (N, D) points, the same kind
   const float* luts;       // (Q, M, K) (ADC flavor)
   const uint8_t* codes;    // (N, M)
   const uint8_t* mask;     // (U, N) bytes, nonzero = row may win
@@ -96,17 +112,80 @@ struct Args {
   int Q, N, D, M, K, metric;
   int n_exact;             // qperm[0, n_exact) score exact, the rest ADC
   int tiles_exact, tq_adc, chunks, kc;
+  float q_scale, x_scale;  // int8: dequantization scales (1 otherwise)
 };
 
 __device__ __forceinline__ bool better(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
 }
 
-// |v|^2 as one fused multiply-add chain in feature order
-__device__ __forceinline__ float sq_norm(const float* v, int D) {
+// One element as f32: bf16 upcast (exact), int8 dequantized (x * scale)
+template <int KIND>
+__device__ __forceinline__ float elem(const void* base, size_t i, float scale) {
+  if constexpr (KIND == F32) return static_cast<const float*>(base)[i];
+  else if constexpr (KIND == BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
+  else return __fmul_rn(static_cast<float>(static_cast<const int8_t*>(base)[i]), scale);
+}
+
+// |v|^2 of row ``row`` as one fused multiply-add chain in feature order,
+// over the f32 values of elem
+template <int KIND>
+__device__ __forceinline__ float sq_norm(const void* base, size_t row, int D, float scale) {
   float s = 0.f;
-  for (int d = 0; d < D; ++d) s = __fmaf_rn(v[d], v[d], s);
+  for (int d = 0; d < D; ++d) {
+    const float v = elem<KIND>(base, row * D + d, scale);
+    s = __fmaf_rn(v, v, s);
+  }
   return s;
+}
+
+// A stage holds BK features a row: f32 values for f32 and bf16, four
+// int8 values packed in a word for int8 (features past D load as zeros).
+template <int KIND> struct Stage {
+  using T = float;   // staged word
+  using Acc = float; // cross-product accumulator
+  static constexpr int W = BK;
+};
+template <> struct Stage<INT8> {
+  using T = int;
+  using Acc = int;
+  static constexpr int W = BK / 4;
+};
+
+// the staged word of features [gk, gk + 4) (int8) or gk (else) of one row
+template <int KIND>
+__device__ __forceinline__ typename Stage<KIND>::T load_word(const void* base, size_t row, int D,
+                                                             int gk, bool valid) {
+  if constexpr (KIND == INT8) {
+    const int8_t* p = static_cast<const int8_t*>(base) + row * D;
+    unsigned w = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (valid && gk + b < D) w |= (static_cast<unsigned>(static_cast<uint8_t>(p[gk + b])) << (8 * b));
+    return static_cast<int>(w);
+  } else {
+    return valid && gk < D ? elem<KIND>(base, row * D + gk, 1.f) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float mac(float a, float b, float acc) { return __fmaf_rn(a, b, acc); }
+__device__ __forceinline__ int mac(int a, int b, int acc) { return __dp4a(a, b, acc); }
+
+// add the squares of one staged word's f32 values to a norm, feature order
+__device__ __forceinline__ float norm_add(float v, float s, float) { return __fmaf_rn(v, v, s); }
+__device__ __forceinline__ float norm_add(int w, float s, float scale) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const float v = __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> (8 * b))), scale);
+    s = __fmaf_rn(v, v, s);
+  }
+  return s;
+}
+
+// the cross product as f32: int8 sums are scaled once, after the sum
+__device__ __forceinline__ float cross_f32(float acc, float) { return acc; }
+__device__ __forceinline__ float cross_f32(int acc, float qx) {
+  return __fmul_rn(static_cast<float>(acc), qx);
 }
 
 // the expanded-form score from the chain sums
@@ -149,9 +228,14 @@ __device__ void warp_select(float* dist, int rows, int kc, int row0, float* out_
   }
 }
 
+template <int KIND>
 __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
-  __shared__ float As[BK][TQ + 1];
-  __shared__ float Bs[BK][BN + 1];
+  using T = typename Stage<KIND>::T;
+  using Acc = typename Stage<KIND>::Acc;
+  constexpr int W = Stage<KIND>::W;
+  constexpr int PER = BK / W;  // features per staged word
+  __shared__ T As[W][TQ + 1];
+  __shared__ T Bs[W][BN + 1];
   __shared__ float q2s[TQ];
   __shared__ float x2s[BN];
   __shared__ int qids[TQ];
@@ -163,11 +247,13 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
   const int nq = min(TQ, a.n_exact - first);
   const int row0 = chunk * CN;
   const int rows = min(CN, a.N - row0);
+  // int8: scale the int32 cross once; the product rounds as the reference's
+  const float qx = __fmul_rn(a.q_scale, a.x_scale);
   if (tid < TQ) {
     const int qid = tid < nq ? (a.qperm ? a.qperm[first + tid] : first + tid) : -1;
     qids[tid] = qid;
     mrow[tid] = qid >= 0 && a.mask_row ? a.mask_row[qid] : 0;
-    q2s[tid] = qid >= 0 ? sq_norm(a.q + (size_t)qid * a.D, a.D) : 0.f;
+    q2s[tid] = qid >= 0 ? sq_norm<KIND>(a.q, qid, a.D, a.q_scale) : 0.f;
   }
   __syncthreads();
   for (int sub = 0; sub < rows; sub += BN) {
@@ -185,30 +271,30 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
       __syncthreads();
       continue;
     }
-    float acc[TM][TN];
+    Acc acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
     float xn = 0.f;
     for (int k0 = 0; k0 < a.D; k0 += BK) {
-      for (int e = tid; e < TQ * BK; e += THREADS) {
-        const int i = e / BK, kk = e % BK, qid = qids[i], gk = k0 + kk;
-        As[kk][i] = (qid >= 0 && gk < a.D) ? a.q[(size_t)qid * a.D + gk] : 0.f;
+      for (int e = tid; e < TQ * W; e += THREADS) {
+        const int i = e / W, kk = e % W, qid = qids[i];
+        As[kk][i] = load_word<KIND>(a.q, qid < 0 ? 0 : qid, a.D, k0 + kk * PER, qid >= 0);
       }
-      for (int e = tid; e < BN * BK; e += THREADS) {
-        const int j = e / BK, kk = e % BK, gr = row0 + sub + j, gk = k0 + kk;
-        Bs[kk][j] = (sub + j < rows && gk < a.D) ? a.x[(size_t)gr * a.D + gk] : 0.f;
+      for (int e = tid; e < BN * W; e += THREADS) {
+        const int j = e / W, kk = e % W;
+        Bs[kk][j] = load_word<KIND>(a.x, (size_t)row0 + sub + j, a.D, k0 + kk * PER, sub + j < rows);
       }
       __syncthreads();
       // features past D load as zeros, and a zero product leaves a sum as it is
       if (tid < BN) {
 #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) xn = __fmaf_rn(Bs[kk][tid], Bs[kk][tid], xn);
+        for (int kk = 0; kk < W; ++kk) xn = norm_add(Bs[kk][tid], xn, a.x_scale);
       }
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[TM], bv[TN];
+      for (int kk = 0; kk < W; ++kk) {
+        T av[TM], bv[TN];
 #pragma unroll
         for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
 #pragma unroll
@@ -216,7 +302,7 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
       }
       __syncthreads();
     }
@@ -232,7 +318,7 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
         const int r = sub + tx * TN + j;
         if (r >= rows) continue;
         dist[qi * CN + r] = m[row0 + r]
-            ? exact_score(q2s[qi], acc[i][j], x2s[tx * TN + j], a.metric)
+            ? exact_score(q2s[qi], cross_f32(acc[i][j], qx), x2s[tx * TN + j], a.metric)
             : CUDART_INF_F;
       }
     }
@@ -282,11 +368,13 @@ __device__ void adc_tile(const Args& a, float* smem, int tile, int chunk) {
   }
 }
 
+// KIND is the exact flavor's element kind; only f32 launches carry ADC tiles
+template <int KIND>
 __global__ void __launch_bounds__(THREADS) chunk_topk_kernel(Args a) {
   extern __shared__ float smem[];
   const int tile = blockIdx.x;
-  if (tile < a.tiles_exact) exact_tile(a, smem, tile, blockIdx.y);
-  else adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
+  if (tile < a.tiles_exact) exact_tile<KIND>(a, smem, tile, blockIdx.y);
+  else if constexpr (KIND == F32) adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
 }
 
 // Pass 2: one block per query; each chunk's list is sorted, so the heads
@@ -374,14 +462,20 @@ int masked_topk_adc_tile(int M, int K) {
 
 // Masked top-k over Q queries.  qperm[0, n_exact) score exact (q, x), the
 // rest ADC (luts, codes); for the exact-only and ADC-only wrappers n_exact is
-// Q or 0.  part_d / part_i are (Q, chunks, kc) scratch with chunks =
-// ceil(N / CN) and kc = min(k, CN); out is (Q, k).  Returns a CUDA error code.
-int masked_topk(const float* q, const float* x, const float* luts, const uint8_t* codes,
+// Q or 0.  kind is the element kind of q and x (0 f32, 1 bf16, 2 int8 with
+// its q_scale and x_scale; ADC queries only with f32).  part_d / part_i are
+// (Q, chunks, kc) scratch with chunks = ceil(N / CN) and kc = min(k, CN);
+// out is (Q, k).  Returns a CUDA error code.
+int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* codes,
                 const uint8_t* mask, const int* mask_row, const int* qperm, int Q, int N,
-                int D, int M, int K, int metric, int n_exact, int k, float* part_d,
-                int* part_i, float* out_d, int* out_i, cudaStream_t stream) {
+                int D, int M, int K, int metric, int n_exact, int k, int kind, float q_scale,
+                float x_scale, float* part_d, int* part_i, float* out_d, int* out_i,
+                cudaStream_t stream) {
   if (Q <= 0 || N <= 0 || k <= 0) return 0;
+  if (kind < F32 || kind > INT8 || (kind != F32 && n_exact != Q))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
+  a.q_scale = q_scale; a.x_scale = x_scale;
   a.q = q; a.x = x; a.luts = luts; a.codes = codes; a.mask = mask; a.mask_row = mask_row;
   a.qperm = qperm; a.part_d = part_d; a.part_i = part_i;
   a.Q = Q; a.N = N; a.D = D; a.M = M; a.K = K; a.metric = metric; a.n_exact = n_exact;
@@ -404,11 +498,13 @@ int masked_topk(const float* q, const float* x, const float* luts, const uint8_t
   // The ceiling is one value per process and executors launch from several
   // threads, so every call sets the same fixed ceilings: a launch's own size
   // never lowers another thread's between its set and its launch.
-  cudaError_t e = cudaFuncSetAttribute(chunk_topk_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, CHUNK_SMEM);
+  void (*kern)(Args) = kind == F32 ? chunk_topk_kernel<F32>
+                       : kind == BF16 ? chunk_topk_kernel<BF16> : chunk_topk_kernel<INT8>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       CHUNK_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.tiles_exact + tiles_adc, a.chunks);
-  chunk_topk_kernel<<<grid, THREADS, smem, stream>>>(a);
+  kern<<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t msmem = (size_t)a.chunks * (sizeof(float) + 2 * sizeof(int));

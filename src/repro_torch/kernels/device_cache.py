@@ -19,6 +19,8 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``; raises ``RuntimeError`` for CUDA without a
@@ -99,6 +101,18 @@ def device_adjacency(graph) -> torch.Tensor:
     return cached_device_array(
         graph, "_device_adjacency", graph.adjacency, graph.n,
         _to(graph.device, torch.int64), graph.device,
+    )
+
+
+def device_vectors_quant(graph, dtype: str):
+    """Quantized device copy of ``graph.vectors[:graph.n]`` for the reduced-
+    precision scans: ``(stored, x_scale)`` per :func:`ref.quantize_points`
+    (bf16, or int8 with its per-tensor scale), quantized on the device once
+    per (graph, dtype, rows), not once per probe."""
+    return cached_device_array(
+        graph, f"_device_vectors_{dtype}", graph.vectors, graph.n,
+        lambda a: ref.quantize_points(to_device(a[: graph.n], graph.device), dtype),
+        graph.device,
     )
 
 

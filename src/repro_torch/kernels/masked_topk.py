@@ -8,6 +8,11 @@
   ``masked_pq_topk_multi_pallas``: the same over PQ-ADC scores.
 - :func:`unified_masked_topk` replaces ``unified_masked_topk_pallas``: each
   query scored by its own flavor in one launch.
+- :func:`masked_exact_topk` on bf16 or int8 tensors replaces the
+  reduced-precision scans of the two exact Pallas functions
+  (``_masked_exact_kernel`` on bf16 inputs, ``_masked_exact_q_kernel``):
+  the caller passes the stored (quantized) queries and points, and for
+  int8 their two scales.
 
 A mask is bytes: ``mask_rows`` (U, N) uint8 (nonzero = the row may win) and
 ``row_index`` (Q,) int32 naming each query's row, or ``row_index=None`` for
@@ -18,7 +23,8 @@ Each wrapper takes CUDA tensors only and raises for any other; the choice
 between a kernel and its plain version (``kernels/ref.py``) is made in
 ``kernels/ops.py``.  Launch counts: ``masked_exact_topk`` /
 ``masked_pq_topk`` for a shared row, ``*_multi`` for per-query rows (the two
-Pallas functions each replaces), ``unified_masked_topk``.
+Pallas functions each replaces), ``unified_masked_topk``; the quantized
+scans count under the same names with ``_bf16`` / ``_int8`` appended.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from repro_torch.kernels.rerank import _METRIC, check_cuda
 def _lib() -> ctypes.CDLL:
     lib = _build.load("masked_topk")
     if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.masked_topk.argtypes = [vp] * 7 + [ci] * 8 + [vp] * 4 + [vp]
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.masked_topk.argtypes = [vp] * 7 + [ci] * 9 + [cf] * 2 + [vp] * 4 + [vp]
         lib.masked_topk.restype = ci
         lib.masked_topk_chunk_rows.argtypes = []
         lib.masked_topk_chunk_rows.restype = ci
@@ -76,6 +82,8 @@ def _launch(
     qperm: Optional[torch.Tensor] = None,
     n_exact: int,
     metric: str = "l2",
+    kind: int = 0,
+    scales=(1.0, 1.0),
 ):
     out_d = torch.full((q, k), float("inf"), dtype=torch.float32, device=device)
     out_i = torch.full((q, k), -1, dtype=torch.int32, device=device)
@@ -92,7 +100,8 @@ def _launch(
         rc = lib.masked_topk(
             _ptr(queries), _ptr(points), _ptr(luts), _ptr(codes),
             mask_rows.data_ptr(), _ptr(row_index), _ptr(qperm),
-            q, n, d, m, kcode, _METRIC[metric], n_exact, k,
+            q, n, d, m, kcode, _METRIC[metric], n_exact, k, kind,
+            float(scales[0]), float(scales[1]),
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -115,6 +124,11 @@ def _check_adc(luts: torch.Tensor, codes: torch.Tensor, q: int, n: int) -> None:
                          "does not fit the kernel's shared memory")
 
 
+# element kind of the exact scan (the kernel's template argument) and the
+# suffix of its launch count, by the dtype of the stored queries and points
+_KINDS = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"), torch.int8: (2, "_int8")}
+
+
 def masked_exact_topk(
     queries: torch.Tensor,
     points: torch.Tensor,
@@ -123,18 +137,26 @@ def masked_exact_topk(
     k: int,
     *,
     metric: str = "l2",
+    scales=None,
 ):
-    """Masked exact top-k: queries (Q, D) f32, points (N, D) f32."""
-    check_cuda("queries", queries, torch.float32, 2)
-    check_cuda("points", points, torch.float32, 2)
+    """Masked exact top-k: queries (Q, D), points (N, D), both f32, both
+    bf16, or both int8 with ``scales`` = (q_scale, x_scale)."""
+    if points.dtype not in _KINDS:
+        raise ValueError(f"points must be f32, bf16 or int8, got {points.dtype}")
+    check_cuda("queries", queries, points.dtype, 2)
+    check_cuda("points", points, points.dtype, 2)
+    kind, suffix = _KINDS[points.dtype]
+    if (scales is None) != (kind != 2):
+        raise ValueError("scales (q_scale, x_scale) go with int8 inputs, and only with them")
     q, n = queries.shape[0], points.shape[0]
     if queries.shape[1] != points.shape[1]:
         raise ValueError(f"feature dims differ: {queries.shape[1]} vs {points.shape[1]}")
     _check_mask(mask_rows, row_index, q, n)
     name = "masked_exact_topk" if row_index is None else "masked_exact_topk_multi"
     return _launch(
-        name, q, n, int(k), device=queries.device, queries=queries, points=points,
-        mask_rows=mask_rows, row_index=row_index, n_exact=q, metric=metric,
+        name + suffix, q, n, int(k), device=queries.device, queries=queries, points=points,
+        mask_rows=mask_rows, row_index=row_index, n_exact=q, metric=metric, kind=kind,
+        scales=scales or (1.0, 1.0),
     )
 
 

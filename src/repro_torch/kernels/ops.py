@@ -31,9 +31,16 @@ Masked-op contract (``masked_exact_topk`` / ``masked_pq_topk``, their
 - Outputs are (dists (Q, k) f32, ids (Q, k) int32), each row ascending with
   ties to the lowest id; slots past the passing rows, and past N when
   k > N, hold (+inf, -1).
-- ``dtype`` other than ``"f32"`` (the quantized scans) raises
-  ``NotImplementedError``: those kernels are not ported yet, and scoring in
-  f32 in their place would be a silent fallback.
+- ``dtype`` (``masked_exact_topk``, ``*_multi``, ``*_dedup``) picks the
+  scoring precision, ``"f32"``, ``"bf16"`` or ``"int8"``: for the
+  quantized two, ``points`` may be the stored matrix (bf16, or int8 with its
+  ``x_scale``, as :func:`ref.quantize_points` makes it) or f32 to quantize
+  here; the queries are quantized per call, all rows with one scale.  On the
+  card the bf16 / int8 kernels score the stored values, never an f32 scan
+  in their place.  Quantized scores carry value error: callers route the
+  pool through the full-precision :func:`gather_rerank` guard.
+- ``pq_scan`` is the dense ADC score matrix (no mask, no top-k), summed in
+  the masked ADC kernels' order; ``pq_scan_topk`` its ascending top-k.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import torch
 from repro_torch.kernels import masked_topk as _masked
 from repro_torch.kernels import ref
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_assign_kernel
+from repro_torch.kernels.pq_scan import pq_scan as _pq_scan_kernel
 from repro_torch.kernels.rerank import gather_rerank as _gather_rerank_kernel
 from repro_torch.kernels.rerank import rerank_distances as _rerank_distances_kernel
 
@@ -103,12 +111,37 @@ def exact_topk(
 
 # -- mask-aware top-k --------------------------------------------------------
 
-def _check_dtype(dtype: str) -> None:
-    if dtype != "f32":
-        raise NotImplementedError(
-            f"masked scan dtype {dtype!r} is not ported to repro_torch yet "
-            "(ROADMAP Queue 1, item 7: quantized flavors)"
+def _quant_inputs(queries: torch.Tensor, points: torch.Tensor, dtype: str, x_scale: float):
+    """A quantized call's inputs: ``points`` may arrive stored (bf16 / int8
+    from a cached device copy, with its ``x_scale``) or f32 to quantize
+    here; the queries are always quantized, all rows of the call together.
+    Returns (stored_q, stored_x, q_scale, x_scale)."""
+    if dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown score dtype {dtype!r}")
+    want = torch.bfloat16 if dtype == "bf16" else torch.int8
+    x = points
+    if x.dtype != want:
+        x, x_scale = ref.quantize_points(x, dtype)
+    qs, q_scale = ref.quantize_points(queries, dtype)
+    return qs.contiguous(), x.contiguous(), float(q_scale), float(x_scale)
+
+
+def _masked_quant(queries, points, k, metric, dtype, x_scale, *, kernel_masks=None,
+                  plain_mask=None):
+    """Quantized masked exact top-k: the bf16 / int8 kernel on
+    ``kernel_masks`` = (mask rows, row index or None), else the
+    dequantizing plain version on ``plain_mask``, an (N,) row or a (Q, N)
+    plane."""
+    qs, xs, q_scale, x_scale = _quant_inputs(queries, points, dtype, x_scale)
+    if kernel_masks is None:
+        return ref.masked_exact_topk_quant(
+            queries.to(torch.float32), xs, plain_mask, int(k), metric=metric, dtype=dtype,
+            x_scale=x_scale,
         )
+    return _masked.masked_exact_topk(
+        qs, xs, *kernel_masks, int(k), metric=metric,
+        scales=(q_scale, x_scale) if dtype == "int8" else None,
+    )
 
 
 def _bytes(mask: torch.Tensor) -> torch.Tensor:
@@ -131,10 +164,16 @@ def masked_exact_topk(
     metric: str = "l2",
     backend: str = "auto",
     dtype: str = "f32",
+    x_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked exact top-k: (Q, D) x (N, D) under a (N,) row mask ->
-    (dists (Q, k), ids (Q, k)) per the masked-op contract above."""
-    _check_dtype(dtype)
+    (dists (Q, k), ids (Q, k)) per the masked-op contract above; ``dtype``
+    and ``x_scale`` as the contract says."""
+    if dtype != "f32":
+        if _use_kernel(backend, queries, points, mask):
+            return _masked_quant(queries, points, k, metric, dtype, x_scale,
+                                 kernel_masks=(_bytes(mask).reshape(1, -1), None))
+        return _masked_quant(queries, points, k, metric, dtype, x_scale, plain_mask=mask)
     q, x = _f32(queries), _f32(points)
     if _use_kernel(backend, q, x, mask):
         return _masked.masked_exact_topk(
@@ -179,14 +218,21 @@ def masked_exact_topk_multi(
     metric: str = "l2",
     backend: str = "auto",
     dtype: str = "f32",
+    x_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query-mask exact top-k under a (Q, N) plane (row q masks query
     q): one call for a heterogeneous batch; Q == 1 goes to the single-mask
-    op."""
-    _check_dtype(dtype)
+    op.  ``dtype`` and ``x_scale`` as :func:`masked_exact_topk`."""
     _check_plane(masks, queries.shape[0], points.shape[0])
     if queries.shape[0] == 1:
-        return masked_exact_topk(queries, points, masks[0], k, metric=metric, backend=backend)
+        return masked_exact_topk(queries, points, masks[0], k, metric=metric, backend=backend,
+                                 dtype=dtype, x_scale=x_scale)
+    if dtype != "f32":
+        if _use_kernel(backend, queries, points, masks):
+            rows = _all_rows(queries.shape[0], queries.device)
+            return _masked_quant(queries, points, k, metric, dtype, x_scale,
+                                 kernel_masks=(_bytes(masks), rows))
+        return _masked_quant(queries, points, k, metric, dtype, x_scale, plain_mask=masks)
     q, x = _f32(queries), _f32(points)
     if _use_kernel(backend, q, x, masks):
         return _masked.masked_exact_topk(
@@ -268,14 +314,20 @@ def masked_exact_topk_dedup(
     metric: str = "l2",
     backend: str = "auto",
     dtype: str = "f32",
+    x_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``masked_exact_topk_multi`` on ``unique_masks[row_index]``."""
-    _check_dtype(dtype)
-    q, x = _f32(queries), _f32(points)
-    if q.shape[0] == 1 or not _use_kernel(backend, q, x, unique_masks, row_index):
+    if queries.shape[0] == 1 or not _use_kernel(backend, queries, points, unique_masks, row_index):
         return masked_exact_topk_multi(
-            q, x, expand_mask_plane(unique_masks, row_index), k, metric=metric, backend=backend
+            queries, points, expand_mask_plane(unique_masks, row_index), k, metric=metric,
+            backend=backend, dtype=dtype, x_scale=x_scale,
         )
+    if dtype != "f32":
+        return _masked_quant(
+            queries, points, k, metric, dtype, x_scale,
+            kernel_masks=(_bytes(unique_masks), row_index.to(torch.int32).contiguous()),
+        )
+    q, x = _f32(queries), _f32(points)
     return _masked.masked_exact_topk(
         q, x, _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k), metric=metric
     )
@@ -353,6 +405,33 @@ def gather_rerank(
     if _use_kernel(backend, q, x, pids):
         return _gather_rerank_kernel(q, x, pids, int(k), metric=metric)
     return ref.gather_rerank(q, x, pids, int(k), metric=metric)
+
+
+# -- dense ADC scan ------------------------------------------------------------
+
+def pq_scan(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """ADC scores (Q, N) from per-query LUTs (Q, m, K) and codes (N, m)."""
+    lt = _f32(luts)
+    if _use_kernel(backend, lt, codes):
+        return _pq_scan_kernel(lt, _codes(codes))
+    return ref.pq_adc_scores(lt, codes)
+
+
+def pq_scan_topk(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    k: int,
+    *,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best ADC scores of each query, ascending, ties to the lowest
+    row (as ``lax.top_k`` on the negated scores): (scores (Q, k), ids (Q, k))."""
+    return ref._ascending_topk(pq_scan(luts, codes, backend=backend), int(k))
 
 
 # -- k-means assignment -------------------------------------------------------

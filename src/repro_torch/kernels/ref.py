@@ -4,8 +4,7 @@ These are the semantic ground truth for the CUDA kernels (``chip_smoke.py``
 holds each kernel against them on the card) and the CPU path of every
 wrapper.  Each mirrors its counterpart in the reference's
 ``repro/kernels/ref.py``, so the CPU tests can hold the two packages to
-float tolerance.  The quantized (bf16 / int8) oracles arrive with the slice
-that ports their kernels.
+float tolerance.
 
 The masked oracles score each query row on its own (one matrix-vector
 product per row, ADC sums in subquantizer order), so a row's scores carry
@@ -187,6 +186,65 @@ def unified_masked_topk(
     d_exact = _row_distances(queries, points, metric)
     d_adc = pq_adc_scores(luts, codes)
     return _masked_topk(torch.where(sel == 2, d_adc, d_exact), sel != 0, k)
+
+
+# -- quantized scoring --------------------------------------------------------
+#
+# As the reference: bf16 / int8 quantize the stored values; the oracles
+# dequantize and score in f32, so they carry the quantized kernels' value
+# error but not their accumulation order.
+
+SCORE_DTYPES = ("f32", "bf16", "int8")
+
+
+def quantize_points(points: torch.Tensor, dtype: str):
+    """Quantize a point matrix for reduced-precision scoring.
+
+    Returns (stored, scale): ``bf16`` stores bfloat16 values (round to
+    nearest even, scale 1.0); ``int8`` stores symmetric per-tensor int8,
+    ``round(x / scale)`` (half to even) clipped to [-127, 127] with
+    ``scale = max|x| / 127`` (1.0 for an all-zero matrix); ``f32`` passes
+    through.  Dequantization is ``stored.float() * scale`` in every case."""
+    x = points.to(torch.float32)
+    if dtype == "f32":
+        return x, 1.0
+    if dtype == "bf16":
+        return x.to(torch.bfloat16), 1.0
+    if dtype == "int8":
+        top = float(x.abs().max()) if x.numel() else 0.0
+        scale = top / 127.0 or 1.0
+        # a tensor divisor: a Python scalar may become a multiply by its
+        # reciprocal on the card, which rounds differently
+        div = torch.full((), scale, dtype=torch.float32, device=x.device)
+        return torch.clamp(torch.round(x / div), -127, 127).to(torch.int8), scale
+    raise ValueError(f"unknown score dtype {dtype!r}")
+
+
+def dequantize_points(stored: torch.Tensor, scale: float) -> torch.Tensor:
+    return stored.to(torch.float32) * torch.full(
+        (), scale, dtype=torch.float32, device=stored.device
+    )
+
+
+def masked_exact_topk_quant(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    *,
+    metric: str = "l2",
+    dtype: str = "bf16",
+    x_scale: float = 1.0,
+):
+    """Quantized-scoring oracle of the masked exact scan: ``points`` is the
+    stored matrix from :func:`quantize_points` (with its ``x_scale``);
+    the queries are quantized here, all rows of the call with one scale.
+    Both sides are dequantized and scored in f32 (row-invariant, as
+    :func:`masked_exact_topk`).  ``mask`` is (N,) or a (Q, N) plane."""
+    xq = dequantize_points(points, x_scale)
+    qs, q_scale = quantize_points(queries, dtype)
+    qq = dequantize_points(qs, q_scale)
+    return _masked_topk(_row_distances(qq, xq, metric), mask, k)
 
 
 def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor):

@@ -1,10 +1,9 @@
 """Coordinator: index lifecycle orchestration (paper §3.1, §5, §6, §7).
 
 Copy of ``repro/runtime/coordinator.py`` with a ``device`` for the
-coordinator's own Stage-0 work.  In this slice of the port the executors
-answer the unfiltered build and ``probe`` paths; ``probe_batch``, refresh,
-filters and the fresh tail reach executor handlers that raise
-``NotImplementedError`` until their slices land.
+coordinator's own Stage-0 work (and for decoding a shard it rebuilds).
+The port's executors answer every task it sends: builds, probes (filtered,
+batched, quantized, over the fresh tail), reranks and refreshes.
 
 Implements the paper's three protocols against the runtime substrate:
 

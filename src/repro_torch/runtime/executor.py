@@ -1,6 +1,6 @@
 """Executor process model (paper §3.1): stateless worker + SSD/L1 caches.
 
-Port of ``repro/runtime/executor.py``, unfiltered slice.  An executor owns:
+Port of ``repro/runtime/executor.py``.  An executor owns:
 
 - an **SSD cache** directory keyed by ``(object_path, credential_fingerprint,
   byte_range, etag)`` — raw blob bytes survive across tasks and are safe to
@@ -8,9 +8,10 @@ Port of ``repro/runtime/executor.py``, unfiltered slice.  An executor owns:
 - an **L1 cache** of deserialized Vamana graphs (bounded LRU);
 - a ``device`` its kernels run on (CUDA by default; ``"cpu"`` runs the
   plain PyTorch versions);
-- task handlers for partition scan, shard build, unfiltered shard probe and
-  exact rerank.  Batched probes, fresh-tail scans, refreshes and predicates
-  raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+- task handlers for partition scan, shard build, shard probe (unfiltered,
+  filtered, batched, and the quantized ExactScan behind its full-precision
+  guard), fresh-tail scan, exact rerank and shard refresh (tombstones plus
+  greedy insert).
 
 Failure-injection hooks (``kill()``, ``fail_next()``, ``delay_next()``,
 ``kill_next()``) drive the scheduler's fault-tolerance paths.
@@ -119,12 +120,6 @@ def _owner_shards(
     device: torch.device,
 ) -> np.ndarray:
     return shard_of_partition[_partition_of(vectors, centroids, device)]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1, {item})"
-    )
 
 
 class Executor:
@@ -453,9 +448,23 @@ class Executor:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Pre-filter exact scan: one ``masked_exact_topk`` call ranks only
         the rows passing the mask.  Output is always (Q, k_eff); slots past
-        the passing rows hold (+inf, -1).  A quantized ``dtype`` raises
-        (ROADMAP Queue 1 item 7)."""
+        the passing rows hold (+inf, -1).
+
+        A quantized ``dtype`` runs the plan's two-stage form: the bf16 /
+        int8 scan over the cached quantized device copy ranks a
+        ``quant_guard_pool``-sized pool, and the full-precision
+        ``gather_rerank`` guard scores that pool down to ``k_eff``, so the
+        emitted distances are exact f32."""
         self._count_dispatch()
+        if dtype != "f32":
+            q = self._q(queries)
+            stored, x_scale = device_cache.device_vectors_quant(graph, dtype)
+            pool = min(planner.quant_guard_pool(k_eff), graph.n)
+            _qd, pids = ops.masked_exact_topk(
+                q, stored, self._dev(live_mask), int(pool), metric=graph.params.metric,
+                backend="auto", dtype=dtype, x_scale=x_scale,
+            )
+            return self._rerank_pool(graph, q, pids, int(k_eff))
         d, ids = ops.masked_exact_topk(
             self._q(queries),
             device_cache.device_vectors(graph),
@@ -463,7 +472,6 @@ class Executor:
             int(k_eff),
             metric=graph.params.metric,
             backend="auto",
-            dtype=dtype,
         )
         return self._np(d, ids)
 
@@ -505,10 +513,21 @@ class Executor:
         unique_masks,
         row_index,
         k_out: int,
+        dtype: str = "f32",
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Heterogeneous-predicate ExactScan: one call answers every query
-        of a fragment under its own row of the dedup'd plane."""
+        of a fragment under its own row of the dedup'd plane.  A quantized
+        ``dtype`` runs the scan-plus-guard form of ``_exact_masked``."""
         self._count_dispatch()
+        if dtype != "f32":
+            q = self._q(queries)
+            stored, x_scale = device_cache.device_vectors_quant(graph, dtype)
+            pool = min(planner.quant_guard_pool(k_out), graph.n)
+            _qd, pids = ops.masked_exact_topk_dedup(
+                q, stored, self._dev_rows(unique_masks), self._idx(row_index), int(pool),
+                metric=graph.params.metric, backend="auto", dtype=dtype, x_scale=x_scale,
+            )
+            return self._rerank_pool(graph, q, pids, int(k_out))
         d, ids = ops.masked_exact_topk_dedup(
             self._q(queries),
             device_cache.device_vectors(graph),
@@ -727,7 +746,7 @@ class Executor:
         elif isinstance(task, F.RerankTaskInfo):
             result = self._rerank(task)
         elif isinstance(task, F.RefreshTaskInfo):
-            raise _not_ported("the shard refresh", "item 5 (refresh; needs insert_batch)")
+            result = self._refresh_shard(task)
         else:
             raise TypeError(f"unknown task type {type(task)}")
         self.tasks_done += 1
@@ -1057,8 +1076,32 @@ class Executor:
                     graph, locmap, dists[j], ids[j], task.shard_id
                 )
 
-        if any(dt != "f32" for dt in exact_dtypes):
-            raise _not_ported("a quantized exact scan", "item 7: quantized flavors")
+        # Reduced-precision exact rows never join the unified fusion (the
+        # unified kernel scores exact rows in f32 only): each dtype gets its
+        # own scan-plus-guard dispatch, and the f32 rows go on below
+        quant_groups: Dict[str, List[int]] = {}
+        for pos, dt in enumerate(exact_dtypes):
+            if dt != "f32":
+                quant_groups.setdefault(dt, []).append(pos)
+        if quant_groups:
+            for dt, poss in sorted(quant_groups.items()):
+                rows = [exact_rows[p] for p in poss]
+                unique, idx = self._dedup_rows(
+                    [exact_masks[p] for p in poss], [exact_keys[p] for p in poss]
+                )
+                if len(unique) == 1:
+                    dists, ids = self._exact_masked(
+                        graph, task.queries[rows], unique[0], k_out, dtype=dt
+                    )
+                else:
+                    dists, ids = self._exact_masked_plane(
+                        graph, task.queries[rows], unique, idx, k_out, dtype=dt
+                    )
+                _emit(rows, dists, ids)
+            keep = [p for p, dt in enumerate(exact_dtypes) if dt == "f32"]
+            exact_rows = [exact_rows[p] for p in keep]
+            exact_masks = [exact_masks[p] for p in keep]
+            exact_keys = [exact_keys[p] for p in keep]
 
         if exact_rows and pq_rows and not self.force_split_flavors:
             # mixed flavors: ONE unified dispatch for the whole fragment
@@ -1249,3 +1292,65 @@ class Executor:
                 [F.RerankRow(*rows_flat[ci], float(d[qi, ci])) for ci in owned]
             )
         return result
+
+    def _refresh_shard(self, task: F.RefreshTaskInfo) -> F.RefreshResult:
+        t0 = time.time()
+        graph, locmap, _hit = self._load_shard(
+            task.puffin_path, task.blob_offset, task.blob_length, task.blob_codec, task.cache_key
+        )
+        # deletions first: tombstone every vector whose source file was removed
+        tombstoned = 0
+        if task.removed_files:
+            removed = set(task.removed_files)
+            path_arr = np.array(
+                [locmap.file_paths[int(i)] for i in locmap.file_idx[: graph.n]]
+            )
+            doomed = np.flatnonzero(np.isin(path_arr, list(removed)))
+            fresh = doomed[~graph.tombstones[doomed]]
+            graph.tombstone(fresh)
+            tombstoned = int(len(fresh))
+        # insertions: scan the added files, keep the rows this shard owns
+        inserted = 0
+        if task.added_files:
+            vectors, fidx, rgrp, roff, paths = _scan_files_with_locations(
+                self.store, task.added_files
+            )
+            if vectors.shape[0]:
+                owners = _owner_shards(
+                    vectors, task.partition_centroids, task.shard_of_partition, self.device
+                )
+                sel = np.flatnonzero(owners == task.shard_id)
+                if len(sel):
+                    graph.insert_batch(vectors[sel])
+                    inserted = int(len(sel))
+                    base = len(locmap.file_paths)
+                    locmap.file_paths.extend(paths)
+                    locmap.file_idx = np.concatenate([locmap.file_idx, fidx[sel] + base])
+                    locmap.row_group = np.concatenate([locmap.row_group, rgrp[sel]])
+                    locmap.row_offset = np.concatenate([locmap.row_offset, roff[sel]])
+        blob = encode_shard_blob(graph, locmap, include_vectors=task.include_vectors)
+        self.store.put(task.output_path, blob)
+        # The refresh mutated the L1 entry's graph and location map in place:
+        # evict it (a probe of the old snapshot re-decodes the old blob) and
+        # every mask of this shard, with their device copies — the row set
+        # changed, so masks computed before the refresh are stale.
+        l1_key = f"{task.cache_key or task.puffin_path}@{task.blob_offset}"
+        with self._lock:
+            self._l1.pop(l1_key, None)
+            for cache in (self._mask_cache, self._live_cache):
+                for key in [kk for kk in cache if kk[0] == l1_key]:
+                    self._dev_masks.pop(id(cache.pop(key)), None)
+        return F.RefreshResult(
+            shard_id=task.shard_id,
+            output_path=task.output_path,
+            executor_id=self.executor_id,
+            inserted=inserted,
+            tombstoned=tombstoned,
+            vector_count=graph.n,
+            byte_size=len(blob),
+            tombstone_ratio=graph.tombstone_ratio,
+            refresh_seconds=time.time() - t0,
+            rg_membership=_locmap_membership(
+                locmap, graph.n, live=~graph.tombstones[: graph.n]
+            ),
+        )

@@ -210,7 +210,10 @@ def test_reverse_edge_scatter_equals_reference_loop(data, passes):
     adj = torch.as_tensor(before.astype(np.int64))
     tgt, src = tv._reverse_edge_scatter(adj, torch.as_tensor(sel), torch.as_tensor(nbrs))
     np.testing.assert_array_equal(adj.numpy(), g.adjacency)
-    assert tv._overflow_dict(tgt, src) == captured
+    overflow = {}
+    for t, s in zip(tgt.tolist(), src.tolist()):  # the reference's dict form
+        overflow.setdefault(t, []).append(s)
+    assert overflow == captured
     if passes == 0:
         assert captured
 
@@ -220,15 +223,15 @@ def test_reprune_equals_reference(data):
     g = _fresh_ref_graph(X, 1)
     sel, nbrs = _batch_state(g, seed=8)
     g.adjacency[sel] = nbrs
-    port = tv.graph_from_arrays(g.vectors, g.adjacency, g.n, g.medoid,
-                                tv.VamanaParams(**PARAMS), device=CPU)
+    adj = torch.as_tensor(g.adjacency.astype(np.int64))
     captured = {}
     real = g._reprune_nodes
     g._reprune_nodes = lambda overflow: (captured.update(overflow), real(overflow))
     g._add_reverse_edges(sel, nbrs)
-    port._add_reverse_edges(sel, nbrs)
+    tv._link_reverse(torch.as_tensor(g.vectors), adj, torch.as_tensor(sel),
+                     torch.as_tensor(nbrs.astype(np.int64)), g.n, tv.VamanaParams(**PARAMS))
     assert captured, "the batch should overflow some rows"
-    np.testing.assert_array_equal(port.adjacency, g.adjacency)
+    np.testing.assert_array_equal(adj.numpy(), g.adjacency)
 
 
 def test_port_build_recall_and_degrees(data):
@@ -312,3 +315,23 @@ def test_search_masked_tombstones_and_shared_row(data, ref_graph):
     gd, gi = port.search_masked(Q, 20, torch.as_tensor(rows[2]), L=24)
     np.testing.assert_array_equal(gi, wi)
     assert not np.isin(gi[gi >= 0], np.flatnonzero(dead)).any()
+
+
+def test_graph_from_arrays_round_trips_a_refreshed_graph(data):
+    """A reference graph grown past its capacity by ``insert_batch`` and
+    tombstoned carries into the port with its quantized device copies equal
+    to the reference's (stored values and scale) and the same search."""
+    from repro.kernels import device_cache as jcache
+
+    X, Q = data
+    g = jv.build_vamana(X[:900], jv.VamanaParams(**PARAMS), passes=1, batch=64, seed=5)
+    g.insert_batch(X[900:])  # 900 + the rest passes the 1,024-row capacity
+    g.tombstone(np.arange(0, g.n, 7))
+    port = _port_of(g)
+    assert port.vectors.shape == g.vectors.shape and port.n == g.n
+    for dtype in ("bf16", "int8"):
+        want, w_scale = jcache.device_vectors_quant(g, dtype)
+        got, g_scale = tv.device_cache.device_vectors_quant(port, dtype)
+        assert g_scale == w_scale
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want).astype(np.float32))
+    np.testing.assert_array_equal(port.search(Q, 10)[1], g.search(Q, 10)[1])

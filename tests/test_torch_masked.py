@@ -190,14 +190,27 @@ def test_dedup_ops_match_reference(ref, case):
     np.testing.assert_array_equal(ops.expand_mask_plane(tu, ti).numpy(), unique[idx])
 
 
-def test_quantized_dtype_raises_naming_its_item():
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_quantized_dtype_matches_reference(ref, dtype):
+    """The three exact entry points with a quantized ``dtype`` score the
+    quantized values as the reference's oracle does (equal id sets; the
+    tolerance of the reference's own quantized tests)."""
+    jnp, jops = ref
     Q, X, _, _, plane, k = _case("basic")
-    for fn, mask in ((ops.masked_exact_topk, plane[0]), (ops.masked_exact_topk_multi, plane)):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-            fn(_t(Q), _t(X), _t(mask), k, dtype="int8")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        ops.masked_exact_topk_dedup(_t(Q), _t(X), _t(plane), _t(np.arange(Q.shape[0])), k,
-                                    dtype="bf16")
+    idx = np.arange(Q.shape[0]) % 2
+    for fn, jfn, masks in (
+        (ops.masked_exact_topk, jops.masked_exact_topk, (plane[0],)),
+        (ops.masked_exact_topk_multi, jops.masked_exact_topk_multi, (plane,)),
+        (ops.masked_exact_topk_dedup, jops.masked_exact_topk_dedup, (plane[:2], idx)),
+    ):
+        gd, gi = fn(_t(Q), _t(X), *[_t(m) for m in masks], k, dtype=dtype)
+        wd, wi = jfn(jnp.asarray(Q), jnp.asarray(X), *[jnp.asarray(m) for m in masks], k,
+                     dtype=dtype, backend="ref")
+        wd, wi = np.asarray(wd), np.asarray(wi)
+        for g, w in zip(gi.numpy(), wi):
+            assert set(g.tolist()) == set(w.tolist())
+        np.testing.assert_allclose(np.where(np.isinf(wd), 0, gd.numpy()),
+                                   np.where(np.isinf(wd), 0, wd), rtol=5e-3, atol=5e-2)
 
 
 # -- exact_topk ties (a slice-1 fault: torch.topk orders ties freely) -------------
