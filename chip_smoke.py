@@ -59,7 +59,12 @@ no result line):
 
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
-``pq_scan`` (bit for bit) against their plain versions.
+``pq_scan`` (bit for bit) against their plain versions, and times each
+exact scan (f32, bf16, int8) at k = 1, 40 and 160 and under an all-zero
+mask (the k sweep: k = 1 is about the scoring, the growth in k the
+select).  ``--parent DIR`` then holds ``masked_topk.cu`` of the checkout
+``DIR`` against this one's (equal bits on every launch name, times in
+turns); ``--only-kernels`` stops after phase 2 without the result lines.
 
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
 them after; each kernel but ``pq_scan`` must have run on these paths
@@ -488,6 +493,21 @@ def _masked_checks(torch, ops, q, x, luts, codes, plane, k, what, metrics=("l2",
     return errs
 
 
+SWEEP_K = (1, 40, 160)
+
+
+def _k_sweep(torch, name, fn, mask, shape):
+    """Times (ms) of one exact scan ``fn(mask, k)`` at k = 1, 40 and 160 on
+    ``mask`` and at k = 160 under an all-zero mask, where the 64-row skip
+    leaves no scoring: k = 1 is about the scoring's time, the growth in k is
+    the select's.  Logs one line."""
+    t = {k: time_ms(torch, lambda k=k: fn(mask, k)) for k in SWEEP_K}
+    zero = torch.zeros_like(mask)
+    t["mask 0%"] = time_ms(torch, lambda: fn(zero, SWEEP_K[-1]))
+    log(f"k sweep {name} [{shape}]: " + ", ".join(f"k={k} {t[k]:.4f} ms" for k in SWEEP_K)
+        + f", mask 0% k={SWEEP_K[-1]} {t['mask 0%']:.4f} ms")
+
+
 def _masked_bound(q_rows, plane, d, m, kc, k, flavor, elem=4, peak=PEAK_F32):
     """Least time for a masked top-k: each row that passes for some query
     read once (D values of ``elem`` bytes for exact rows, m code bytes for
@@ -572,6 +592,8 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
         return torch.topk(d, k, dim=1, largest=False)
 
     plane_bcast = wide[None, :].expand(Q, -1)
+    _k_sweep(torch, "masked_exact_topk", lambda m, k: ops.masked_exact_topk(q, x, m, k), wide,
+             f"Q=100 N={shard_n} D=128 mask 50%")
     cases = {
         "masked_exact_topk": (
             lambda b: ops.masked_exact_topk(q, x, wide, 40, backend=b),
@@ -735,6 +757,10 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
                 lambda lib=lib: lib(uniq[idx]), uniq.shape[0], uniq[idx],
                 f"Q=100 N={shard_n} D=128 k={k} plane of 10 price masks"),
         }
+        _k_sweep(torch, f"masked_exact_topk_{dtype}",
+                 lambda m, kk, s=stored, xs=x_scale, dt=dtype: ops.masked_exact_topk(
+                     q, s, m, kk, dtype=dt, x_scale=xs),
+                 wide, f"Q=100 N={shard_n} D=128 mask 50%")
         atol = 1e-5 * _scale(q, x)
         for name, (fn, yard, q_rows, plane, shape) in cases.items():
             err = _check_topk(torch, fn("auto"), fn("ref"), atol, f"timed {name}")
@@ -759,6 +785,147 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
             f"library {lib_s}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
             f"{r['max_abs_err']:.3g} (over every check of phase 2: {errs.get(name, 0.0):.3g})")
     return rows
+
+
+# -- --parent: masked_topk.cu of another checkout beside this one's ------------
+
+# every launch name of csrc/masked_topk.cu
+MASKED_NAMES = tuple(n for n, (src, _) in KERNELS.items() if src == MASKED_CU)
+
+
+def _parent_lib(parent: str):
+    """``csrc/masked_topk.cu`` of the checkout ``parent``, built with the
+    package's own nvcc flags into ``build/`` and loaded beside this
+    checkout's library."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    src = Path(parent).resolve() / "src/repro_torch/kernels/csrc/masked_topk.cu"
+    out = _build.BUILD_DIR / "parent" / "libmasked_topk.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launching(lib) -> None:
+    """Make the masked wrappers launch from ``lib`` (a library of
+    ``masked_topk.cu``)."""
+    from repro_torch.kernels import _build
+
+    with _build._lock:
+        _build._libs["masked_topk"] = lib
+
+
+def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
+    """``--parent DIR``: this checkout's masked top-k kernels against those
+    of ``DIR`` (an earlier commit's tree).  Every launch name of
+    ``masked_topk.cu`` on seeded phase-2 inputs (N = 4,096 and one shard;
+    both metrics, the 50 % row mask and the dedup'd plane of ten price
+    masks, k = 40 and 160) gives the same distance bits and ids from both
+    builds; then the phase-2 timed calls and the k sweeps, timed in turns
+    (parent, change, change, parent) on this card."""
+    from repro_torch.kernels import _build, ops, ref
+
+    new, old = _build.load("masked_topk"), _parent_lib(parent)
+    rng = np.random.default_rng(seed + 4)
+    Q, D, M, KC = 100, 128, 32, 256
+    thresholds = (2, 3, 4, 5, 6, 100, 325, 550, 775, 1000)
+    for n in (4096, shard_n):
+        q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, n, D, 0.0, m=M, kc=KC)
+        price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=n)).to(dev)
+        uniq = torch.stack([price < t for t in thresholds])
+        idx = torch.as_tensor(np.arange(Q) % uniq.shape[0]).to(dev)
+        wide = price < 5000
+        flavor = torch.arange(Q, device=dev) % 2 == 1
+        quant = {dt: ref.quantize_points(x, dt) for dt in QUANT}
+        calls = []
+        for k in (40, 160):
+            calls += [
+                ("masked_pq_topk", k, "", lambda k=k: ops.masked_pq_topk(luts, codes, wide, k)),
+                ("masked_pq_topk_multi", k, "",
+                 lambda k=k: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, k)),
+            ]
+            for metric in ("l2", "ip"):
+                calls += [
+                    ("masked_exact_topk", k, metric,
+                     lambda k=k, mt=metric: ops.masked_exact_topk(q, x, wide, k, metric=mt)),
+                    ("masked_exact_topk_multi", k, metric,
+                     lambda k=k, mt=metric: ops.masked_exact_topk_dedup(q, x, uniq, idx, k, metric=mt)),
+                    ("unified_masked_topk", k, metric,
+                     lambda k=k, mt=metric: ops.unified_masked_topk_dedup(
+                         q, x, luts, codes, uniq, idx, flavor, k, metric=mt)),
+                ]
+                for dt, (st, xs) in quant.items():
+                    kw = dict(metric=metric, dtype=dt, x_scale=xs)
+                    calls += [
+                        (f"masked_exact_topk_{dt}", k, metric,
+                         lambda k=k, st=st, kw=kw: ops.masked_exact_topk(q, st, wide, k, **kw)),
+                        (f"masked_exact_topk_multi_{dt}", k, metric,
+                         lambda k=k, st=st, kw=kw: ops.masked_exact_topk_dedup(q, st, uniq, idx, k, **kw)),
+                    ]
+        counts = {}
+        for lib, what in ((old, "parent"), (new, "change")):
+            _launching(lib)
+            _build.reset_launch_counts()
+            outs = [fn() for _name, _k, _m, fn in calls]
+            torch.cuda.synchronize()
+            counts[what] = _build.launch_counts()
+            if what == "parent":
+                want = outs
+        _launching(new)
+        for c in ("parent", "change"):
+            if set(counts[c]) != set(MASKED_NAMES):
+                raise AssertionError(f"--parent N={n}: the {c} build launched {sorted(counts[c])}")
+        bad = [f"{name} k={k} {m}" for (name, k, m, _), a, b in zip(calls, want, outs)
+               if not (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+                       and torch.equal(a[1], b[1]))]
+        if bad:
+            raise AssertionError(f"--parent N={n}: outputs differ from the parent's: {bad}")
+        log(f"parent vs change N={n}: {len(calls)} calls over the {len(MASKED_NAMES)} launch names "
+            f"of masked_topk.cu give equal distance bits and ids")
+
+    def turns(fn):
+        """(parent ms, change ms), each the mean of two medians timed in turns."""
+        t = []
+        for lib in (old, new, new, old):
+            _launching(lib)
+            t.append(time_ms(torch, fn))
+        _launching(new)
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    st = quant  # the one-shard inputs of the last round
+    timed = {
+        "masked_exact_topk": lambda: ops.masked_exact_topk(q, x, wide, 40),
+        "masked_exact_topk_multi": lambda: ops.masked_exact_topk_dedup(q, x, uniq, idx, 40),
+        "masked_pq_topk": lambda: ops.masked_pq_topk(luts, codes, wide, 160),
+        "masked_pq_topk_multi": lambda: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, 160),
+        "unified_masked_topk": lambda: ops.unified_masked_topk_dedup(
+            q, x, luts, codes, uniq, idx, flavor, 160),
+    }
+    for dt, (s, xs) in st.items():
+        timed[f"masked_exact_topk_{dt}"] = lambda s=s, xs=xs, dt=dt: ops.masked_exact_topk(
+            q, s, wide, 160, dtype=dt, x_scale=xs)
+        timed[f"masked_exact_topk_multi_{dt}"] = lambda s=s, xs=xs, dt=dt: ops.masked_exact_topk_dedup(
+            q, s, uniq, idx, 160, dtype=dt, x_scale=xs)
+    for name, fn in timed.items():
+        a, b = turns(fn)
+        log(f"parent vs change {name} [phase-2 timed shape, N={shard_n}]: parent {a:.4f} ms, "
+            f"change {b:.4f} ms, change/parent {b / a:.3f}")
+    zero = torch.zeros_like(wide)
+    for dt in ("f32",) + tuple(QUANT):
+        s, xs = (x, None) if dt == "f32" else st[dt]
+        kw = {} if dt == "f32" else dict(dtype=dt, x_scale=xs)
+        parts = []
+        for label, mask, k in [(f"k={k}", wide, k) for k in SWEEP_K] + [("mask 0% k=160", zero, 160)]:
+            a, b = turns(lambda mask=mask, k=k: ops.masked_exact_topk(q, s, mask, k, **kw))
+            parts.append(f"{label} {a:.4f} / {b:.4f}")
+        name = "masked_exact_topk" + ("" if dt == "f32" else f"_{dt}")
+        log(f"parent vs change k sweep {name} [Q=100 N={shard_n} D=128 mask 50%], parent / change ms: "
+            + ", ".join(parts))
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -1348,6 +1515,11 @@ def main() -> int:
                     help="probe calls of 100 queries per filtered row (phases 4, 5, 7 and 8)")
     ap.add_argument("--small-n", type=int, default=131_072,
                     help="rows of the small-shard catalog of phase 6")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="after phase 2, hold masked_topk.cu of the checkout DIR (an earlier "
+                         "commit's tree) against this one's: equal bits, times in turns")
+    ap.add_argument("--only-kernels", action="store_true",
+                    help="stop after phase 2 (and --parent), without the result lines")
     args = ap.parse_args()
 
     import torch
@@ -1372,6 +1544,12 @@ def main() -> int:
     rows.update(timed("2 masked kernels", phase_masked_kernels, torch, dev, args.n // 4, args.seed))
     rows.update(timed("2 quantized scans + pq_scan", phase_quant_kernels, torch, dev, args.n // 4,
                       args.seed))
+    if args.parent:
+        timed("2 parent vs change", phase_parent, torch, dev, args.n // 4, args.seed, args.parent)
+    if args.only_kernels:
+        log(f"phase seconds: { {k: round(v, 2) for k, v in phase_s.items()} }")
+        log("--only-kernels: phases 1-2 passed; the main path did not run")
+        return 0
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, main, ctx = timed(

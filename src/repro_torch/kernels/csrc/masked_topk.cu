@@ -42,12 +42,33 @@
 // Pass 1: a grid of (query tile, chunk of CN rows).  A block scores its
 // chunk for its queries into shared memory, then each warp takes one query
 // and writes that chunk's kc = min(k, CN) best (score, id) pairs, ascending,
-// to a (Q, chunks, kc) scratch: kc rounds of a warp argmin, stopping at the
-// first +inf (the rest are sentinels).  Pass 2: one block per query merges
-// the chunks' sorted lists (k rounds of a block argmin over the list heads).
-// Splitting N keeps the 132 SMs busy at the small Q of a fallback; one block
-// per query over a 250k-row shard would not.  Output slots past the passing
-// rows (and past N when k > N) hold (+inf, -1).
+// to a (Q, chunks, kc) scratch.  Pass 2: one block per query merges the
+// chunks' sorted lists.  Splitting N keeps the 132 SMs busy at the small Q
+// of a fallback; one block per query over a 250k-row shard would not.
+// Output slots past the passing rows (and past N when k > N) hold
+// (+inf, -1).
+//
+// The select.  Every candidate is one 64-bit key: the order-preserving
+// uint32 image of its f32 score (-0.0 taken onto +0.0 first, so the two
+// tie) above 2 row + (the score is -0.0), so (score, id) order is one
+// integer compare, ties go to the lowest id as lax.top_k orders them, and
+// the key gives back the score's bits; a score that is not below +inf (a
+// masked row, or NaN) is the DEAD key and never wins.  Pass 1 sorts a
+// chunk's keys in registers with a bitonic network: all 512, 16 a lane (45
+// stages of compare-exchange whatever k is, 30 within a lane and 15 across
+// lanes by __shfl_xor_sync) when more than half the rows are live; else the
+// live keys, compacted over the chunk's scores, padded to the next power of
+// two >= 32; a chunk with no live key writes its sentinels and sorts
+// nothing.  Pass 2 merges in warps: a lane holds the head of its list (or
+// the best head of its few lists, the rest in shared memory) with that
+// list's next entry fetched ahead, two warp min-reductions
+// (__reduce_min_sync on the key's halves) pick the winner, and only the
+// winning lane advances.  Up to 16 warps merge 32 lists each into sorted
+// streams in shared memory, and after one barrier one warp merges the
+// streams the same way: a few warp instructions an output slot, no block
+// barrier and no dependent global load on the critical path.  So the
+// select's cost follows the live rows, not k; only the k slots written and
+// merged grow with it.
 //
 // Exact tiles: 32 queries x 64 rows per step, 256 threads each holding a
 // 2 x 4 register block, D streamed through shared memory in chunks of 16 as
@@ -68,9 +89,10 @@
 // against N m code bytes read; bytes at the main-path shapes.  bf16 and
 // int8: the same operations, which the tensor cores would run at 989 and
 // 1,979 TOP/s, so their bound is the 2 or 1 bytes a value of the points
-// (here they run on the SIMT units, int8 four products a __dp4a).  This first
-// version is simple rather than fast: the argmin rounds cost k CN / 32 steps
-// per warp and query, and the exact tiles run at SIMT rate.
+// (here they run on the SIMT units, int8 four products a __dp4a).  With the
+// select's cost flat in k, what holds the exact tiles back is the scoring:
+// f32 multiply-adds on the SIMT units, bf16 upcast to them, and int8 bytes
+// staged one at a time; tensor-core tiles are the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,7 +109,8 @@ constexpr int BN = 64;   // exact rows per register tile
 constexpr int BK = 16;   // feature dims per shared-memory stage
 constexpr int TM = 2;    // register block: TM queries x TN rows
 constexpr int TN = 4;
-constexpr int MERGE_THREADS = 256;
+constexpr int SPT = CN / 32;  // keys a lane holds in a chunk's sort
+constexpr int MERGE_WARPS = 16;  // at most: 32 lists a warp, then one warp over the streams
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int ADC_SMEM = 200 * 1024;  // dynamic shared bytes an ADC tile may take
 constexpr int EXACT_SMEM = TQ * CN * 4;  // an exact tile's (TQ, CN) scores
@@ -95,6 +118,8 @@ constexpr int CHUNK_SMEM = ADC_SMEM > EXACT_SMEM ? ADC_SMEM : EXACT_SMEM;
 constexpr int MERGE_SMEM = MAX_SMEM - 1024;  // leaves room for the static arrays
 static_assert((TQ / TM) * (BN / TN) == THREADS, "one register block per thread");
 static_assert(BK % 4 == 0, "int8 stages pack four features a word");
+static_assert((CN & (CN - 1)) == 0 && SPT * 32 == CN, "the chunk sort holds CN keys, a power of two");
+static_assert(MERGE_WARPS <= 32, "the second merge level gives each stream one lane");
 
 // element kinds of the exact flavor's queries and points
 constexpr int F32 = 0, BF16 = 1, INT8 = 2;
@@ -115,8 +140,43 @@ struct Args {
   float q_scale, x_scale;  // int8: dequantization scales (1 otherwise)
 };
 
-__device__ __forceinline__ bool better(float d, int i, float bd, int bi) {
-  return d < bd || (d == bd && i < bi);
+constexpr unsigned FULL = 0xffffffffu;
+constexpr uint64_t DEAD = ~0ull;  // the key of a row that cannot win
+
+// (score, row) as one key: the order-preserving image of the score, -0.0
+// taken onto +0.0 so that the two tie, above 2 row + (score is -0.0); a
+// lower key is the better candidate, and the key gives back the score's
+// bits.  A score that is not below +inf (masked, or NaN) is DEAD.
+__device__ __forceinline__ uint64_t make_key(float d, int row) {
+  if (!(d < CUDART_INF_F)) return DEAD;
+  const uint32_t u = __float_as_uint(__fadd_rn(d, 0.f));
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  const uint32_t lo = (static_cast<uint32_t>(row) << 1) | (__float_as_uint(d) == 0x80000000u);
+  return (static_cast<uint64_t>(o) << 32) | lo;
+}
+
+__device__ __forceinline__ float key_score(uint64_t key) {
+  const uint32_t o = static_cast<uint32_t>(key >> 32);
+  return (key & 1) ? -0.f : __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+__device__ __forceinline__ int key_row(uint64_t key) {
+  return static_cast<int>(static_cast<uint32_t>(key) >> 1);
+}
+
+__device__ __forceinline__ uint64_t shfl_xor64(uint64_t v, int m) {
+  const uint32_t lo = __shfl_xor_sync(FULL, static_cast<uint32_t>(v), m);
+  const uint32_t hi = __shfl_xor_sync(FULL, static_cast<uint32_t>(v >> 32), m);
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// the smallest key over the warp: two reductions, on the high half and then
+// on the low halves that share it.  Every lane gets it.
+__device__ __forceinline__ uint64_t warp_min(uint64_t key) {
+  const uint32_t hi = static_cast<uint32_t>(key >> 32);
+  const uint32_t mh = __reduce_min_sync(FULL, hi);
+  const uint32_t ml = __reduce_min_sync(FULL, hi == mh ? static_cast<uint32_t>(key) : 0xffffffffu);
+  return (static_cast<uint64_t>(mh) << 32) | ml;
 }
 
 // One element as f32: bf16 upcast (exact), int8 dequantized (x * scale)
@@ -200,32 +260,112 @@ __device__ __forceinline__ float adc_score(const float* lut, const uint8_t* code
   return s;
 }
 
-// One warp: the kc best (score, row) of dist[0, rows), ascending, ties to the
-// lowest row; taken entries are overwritten with +inf.  Stops at the first
-// +inf and fills the remaining slots with (+inf, -1).
-__device__ void warp_select(float* dist, int rows, int kc, int row0, float* out_d, int* out_i) {
+__host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2) : 0; }
+
+// Sorts the warp's 32 M keys ascending into positions e = lane * M + r with
+// a bitonic network: partners closer than M are in the lane's own
+// registers, farther ones in lane ^ (distance / M).
+template <int M>
+__device__ __forceinline__ void warp_sort(uint64_t (&v)[M]) {
   const int lane = threadIdx.x & 31;
-  for (int r = 0; r < kc; ++r) {
-    float bd = CUDART_INF_F;
-    int bj = INT32_MAX;
-    for (int j = lane; j < rows; j += 32) {
-      const float d = dist[j];
-      if (d < bd) { bd = d; bj = j; }
-    }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
-      if (better(od, oj, bd, bj)) { bd = od; bj = oj; }
+  for (int s = 1; s <= 5 + ilog2(M); ++s) {
+#pragma unroll
+    for (int t = s - 1; t >= 0; --t) {
+      // runs of 2^s ascend where bit s of the position is 0, else descend
+      if ((1 << t) < M) {
+#pragma unroll
+        for (int r = 0; r < M; ++r) {
+          if (r & (1 << t)) continue;
+          const int o = r | (1 << t);
+          const bool up = (((lane * M + r) >> s) & 1) == 0;
+          const uint64_t a = v[r], b = v[o];
+          const bool swap = (a > b) == up;
+          v[r] = swap ? b : a;
+          v[o] = swap ? a : b;
+        }
+      } else {
+        const int m = (1 << t) / M;
+        const bool lower = (lane & m) == 0;
+#pragma unroll
+        for (int r = 0; r < M; ++r) {
+          const bool up = (((lane * M + r) >> s) & 1) == 0;
+          const uint64_t p = shfl_xor64(v[r], m);
+          // the lower position of an ascending pair keeps the smaller key
+          v[r] = (lower == up ? p < v[r] : p > v[r]) ? p : v[r];
+        }
+      }
     }
-    if (!(bd < CUDART_INF_F)) {
-      for (int s = r + lane; s < kc; s += 32) { out_d[s] = CUDART_INF_F; out_i[s] = -1; }
-      return;
-    }
-    if (lane == 0) { out_d[r] = bd; out_i[r] = row0 + bj; }
-    if (lane == (bj & 31)) dist[bj] = CUDART_INF_F;
-    __syncwarp();
   }
+}
+
+// sorts v and writes the first kc positions as (score, row0 + row), DEAD
+// keys and positions past 32 M as (+inf, -1)
+template <int M>
+__device__ __forceinline__ void sort_write(uint64_t (&v)[M], int kc, int row0, float* out_d,
+                                           int* out_i) {
+  const int lane = threadIdx.x & 31;
+  warp_sort<M>(v);
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    const int e = lane * M + r;
+    if (e >= kc) continue;
+    out_d[e] = v[r] != DEAD ? key_score(v[r]) : CUDART_INF_F;
+    out_i[e] = v[r] != DEAD ? row0 + key_row(v[r]) : -1;
+  }
+  for (int e = 32 * M + lane; e < kc; e += 32) { out_d[e] = CUDART_INF_F; out_i[e] = -1; }
+}
+
+// the ``live`` keys of buf (live <= 32 M), sorted and written
+template <int M>
+__device__ void sort_compacted(const uint64_t* buf, int live, int kc, int row0, float* out_d,
+                               int* out_i) {
+  const int lane = threadIdx.x & 31;
+  uint64_t v[M];
+#pragma unroll
+  for (int r = 0; r < M; ++r) v[r] = r * 32 + lane < live ? buf[r * 32 + lane] : DEAD;
+  sort_write<M>(v, kc, row0, out_d, out_i);
+}
+
+// One warp: the kc best (score, row) of dist[0, rows), ascending, ties to the
+// lowest row, (+inf, -1) past the live rows.  The chunk's keys are read 16 a
+// lane (a key carries its row, so the order is free: rows r * 32 + lane,
+// without bank conflicts; rows past ``rows`` are DEAD and never read).  A
+// chunk with no live key writes sentinels; one with more than half live
+// sorts all CN keys; else the live keys are compacted over the chunk's
+// scores (all read by then) and the next power of two >= 32 of them sorted.
+__device__ void chunk_select(float* dist, int rows, int kc, int row0, float* out_d, int* out_i) {
+  const int lane = threadIdx.x & 31;
+  uint64_t v[SPT];
+  int live = 0;
+#pragma unroll
+  for (int r = 0; r < SPT; ++r) {
+    const int j = r * 32 + lane;
+    v[r] = j < rows ? make_key(dist[j], j) : DEAD;
+    live += __popc(__ballot_sync(FULL, v[r] != DEAD));
+  }
+  if (live == 0) {
+    for (int s = lane; s < kc; s += 32) { out_d[s] = CUDART_INF_F; out_i[s] = -1; }
+    return;
+  }
+  if (live > CN / 2) {
+    sort_write<SPT>(v, kc, row0, out_d, out_i);
+    return;
+  }
+  uint64_t* buf = reinterpret_cast<uint64_t*>(dist);
+  __syncwarp();
+  int base = 0;
+#pragma unroll
+  for (int r = 0; r < SPT; ++r) {
+    const unsigned bal = __ballot_sync(FULL, v[r] != DEAD);
+    if (v[r] != DEAD) buf[base + __popc(bal & ((1u << lane) - 1))] = v[r];
+    base += __popc(bal);
+  }
+  __syncwarp();
+  if (live <= 32) sort_compacted<1>(buf, live, kc, row0, out_d, out_i);
+  else if (live <= 64) sort_compacted<2>(buf, live, kc, row0, out_d, out_i);
+  else if (live <= 128) sort_compacted<4>(buf, live, kc, row0, out_d, out_i);
+  else sort_compacted<8>(buf, live, kc, row0, out_d, out_i);
 }
 
 template <int KIND>
@@ -326,7 +466,7 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
   }
   for (int qi = tid / 32; qi < nq; qi += WARPS) {
     const size_t base = ((size_t)qids[qi] * a.chunks + chunk) * a.kc;
-    warp_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
+    chunk_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
   }
 }
 
@@ -364,80 +504,103 @@ __device__ void adc_tile(const Args& a, float* smem, int tile, int chunk) {
   __syncthreads();
   for (int qi = tid / 32; qi < nq; qi += WARPS) {
     const size_t base = ((size_t)qids[qi] * a.chunks + chunk) * a.kc;
-    warp_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
+    chunk_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
   }
 }
 
-// KIND is the exact flavor's element kind; only f32 launches carry ADC tiles
-template <int KIND>
-__global__ void __launch_bounds__(THREADS) chunk_topk_kernel(Args a) {
+// KIND is the exact flavor's element kind; launches with ADC queries (f32
+// only) take the ADC form.  An exact-only launch fits three blocks an SM
+// (EXACT_SMEM each) and is held to their 80 registers; an ADC tile's shared
+// memory leaves room for one block, which may take all the registers it
+// wants (A/B on the H100 in PERF.md).
+template <int KIND, bool ADC>
+__global__ void __launch_bounds__(THREADS, ADC ? 1 : 3) chunk_topk_kernel(Args a) {
   extern __shared__ float smem[];
   const int tile = blockIdx.x;
   if (tile < a.tiles_exact) exact_tile<KIND>(a, smem, tile, blockIdx.y);
-  else if constexpr (KIND == F32) adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
+  else if constexpr (ADC) adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
 }
 
-// Pass 2: one block per query; each chunk's list is sorted, so the heads
-// (score, id, list) are all a round needs.
-__global__ void __launch_bounds__(MERGE_THREADS)
+// Pass 2: one block of ``warps`` warps per query.  Level 1: lane g of the
+// block owns lists g, g + 32 warps, ...; it keeps its best head's key in a
+// register with that list's next entry fetched ahead (its other lists' head
+// keys and positions in shared memory, only it touches them), and each
+// round a warp min picks the winner among the 32 lanes, which writes its
+// head and advances.  With one warp the winners are the output; with more,
+// each warp writes a sorted stream of keys to shared memory, and after one
+// barrier warp 0 merges the streams (one a lane) the same way.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
 merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i, int chunks,
              int kc, int k, float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ float msm[];
-  float* hd = msm;                                        // head score per list
-  int* hi = reinterpret_cast<int*>(hd + chunks);          // head id per list
-  int* hp = hi + chunks;                                  // head position per list
-  __shared__ float rd[MERGE_THREADS / 32];
-  __shared__ int ri[MERGE_THREADS / 32];
-  __shared__ int rc[MERGE_THREADS / 32];
-  __shared__ int done;
+  extern __shared__ uint64_t msm[];
+  __shared__ int slen[MERGE_WARPS];
+  const int warps = blockDim.x / 32;
+  const int lanes = blockDim.x, g = threadIdx.x, lane = g & 31, warp = g / 32;
+  const bool multi = chunks > lanes;  // some lane owns several lists
+  uint64_t* sk = msm;                                         // [warps][k] streams (warps > 1)
+  uint64_t* hk = sk + (warps > 1 ? (size_t)warps * k : 0);    // [chunks] head keys (multi)
+  int* hp = reinterpret_cast<int*>(hk + (multi ? chunks : 0));  // [chunks] head positions
   const int q = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const float* pd = part_d + (size_t)q * chunks * kc;
   const int* pi = part_i + (size_t)q * chunks * kc;
-  for (int c = threadIdx.x; c < chunks; c += MERGE_THREADS) {
-    hd[c] = pd[(size_t)c * kc];
-    hi[c] = pi[(size_t)c * kc];
-    hp[c] = 0;
-  }
-  if (threadIdx.x == 0) done = 0;
-  __syncthreads();
   float* od = out_d + (size_t)q * k;
   int* oi = out_i + (size_t)q * k;
+
+  int b = -1, bp = 0, ni = -1;
+  float nd = CUDART_INF_F;
+  uint64_t key = DEAD;
+  for (int c = g; c < chunks; c += lanes) {
+    const uint64_t kk = make_key(pd[(size_t)c * kc], pi[(size_t)c * kc]);
+    if (multi) { hk[c] = kk; hp[c] = 0; }
+    if (b < 0 || kk < key) { key = kk; b = c; }
+  }
+  if (key != DEAD && kc > 1) { nd = pd[(size_t)b * kc + 1]; ni = pi[(size_t)b * kc + 1]; }
   int r = 0;
   for (; r < k; ++r) {
-    float bd = CUDART_INF_F;
-    int bi = INT32_MAX, bc = -1;
-    for (int c = threadIdx.x; c < chunks; c += MERGE_THREADS) {
-      const float d = hd[c];
-      const int i = d < CUDART_INF_F ? hi[c] : INT32_MAX;
-      if (better(d, i, bd, bi)) { bd = d; bi = i; bc = c; }
+    const uint64_t best = warp_min(key);
+    if (best == DEAD) break;
+    if (key != best) continue;
+    if (warps == 1) {
+      od[r] = key_score(key);
+      oi[r] = key_row(key);
+    } else {
+      sk[(size_t)warp * k + r] = key;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od2 = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi2 = __shfl_xor_sync(0xffffffffu, bi, off);
-      const int oc2 = __shfl_xor_sync(0xffffffffu, bc, off);
-      if (better(od2, oi2, bd, bi)) { bd = od2; bi = oi2; bc = oc2; }
+    ++bp;
+    key = make_key(nd, ni);  // the entry fetched ahead, (+inf, -1) past kc
+    if (multi) {
+      hk[b] = key;
+      hp[b] = bp;
+      for (int c = g; c < chunks; c += lanes)
+        if (hk[c] < key) { key = hk[c]; b = c; }
+      bp = hp[b];
     }
-    if (lane == 0) { rd[warp] = bd; ri[warp] = bi; rc[warp] = bc; }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < MERGE_THREADS / 32; ++w)
-        if (better(rd[w], ri[w], bd, bi)) { bd = rd[w]; bi = ri[w]; bc = rc[w]; }
-      if (bd < CUDART_INF_F) {
-        od[r] = bd;
-        oi[r] = bi;
-        const int p = ++hp[bc];
-        hd[bc] = p < kc ? pd[(size_t)bc * kc + p] : CUDART_INF_F;
-        hi[bc] = p < kc ? pi[(size_t)bc * kc + p] : -1;
-      } else {
-        done = 1;
-      }
+    nd = CUDART_INF_F;
+    ni = -1;
+    if (key != DEAD && bp + 1 < kc) {
+      nd = pd[(size_t)b * kc + bp + 1];
+      ni = pi[(size_t)b * kc + bp + 1];
     }
-    __syncthreads();
-    if (done) break;
   }
-  for (int s = r + threadIdx.x; s < k; s += MERGE_THREADS) { od[s] = CUDART_INF_F; oi[s] = -1; }
+  if (warps > 1) {
+    if (lane == 0) slen[warp] = r;
+    __syncthreads();
+    if (warp != 0) return;
+    // level 2: lane w < warps walks stream w (shared memory, so no fetch ahead)
+    const uint64_t* ws = sk + (size_t)lane * k;
+    const int len = lane < warps ? slen[lane] : 0;
+    int p = 0;
+    key = len > 0 ? ws[0] : DEAD;
+    for (r = 0; r < k; ++r) {
+      const uint64_t best = warp_min(key);
+      if (best == DEAD) break;
+      if (key != best) continue;
+      od[r] = key_score(key);
+      oi[r] = key_row(key);
+      key = ++p < len ? ws[p] : DEAD;
+    }
+  }
+  for (int s = r + lane; s < k; s += 32) { od[s] = CUDART_INF_F; oi[s] = -1; }
 }
 
 }  // namespace
@@ -495,11 +658,24 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
     if (adc > smem) smem = adc;
   }
   if (a.chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // Pass 2's warps: one list a lane where 16 warps reach (489 chunks of a
+  // 250k-row shard: 16 warps), fewer where the streams (warps k 8 bytes)
+  // would not fit; one warp needs no streams, only the heads of its lists
+  // (12 bytes a list once a lane owns several): the old merge's bound.
+  int mw = (a.chunks + 31) / 32 < MERGE_WARPS ? (a.chunks + 31) / 32 : MERGE_WARPS;
+  auto merge_bytes = [&](int w) {
+    const size_t heads = a.chunks > 32 * w ? (size_t)a.chunks * (sizeof(uint64_t) + sizeof(int)) : 0;
+    return heads + (w > 1 ? (size_t)w * k * sizeof(uint64_t) : 0);
+  };
+  while (mw > 1 && merge_bytes(mw) > (size_t)MERGE_SMEM) --mw;
+  const size_t msmem = merge_bytes(mw);
+  if (msmem > (size_t)MERGE_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   // The ceiling is one value per process and executors launch from several
   // threads, so every call sets the same fixed ceilings: a launch's own size
   // never lowers another thread's between its set and its launch.
-  void (*kern)(Args) = kind == F32 ? chunk_topk_kernel<F32>
-                       : kind == BF16 ? chunk_topk_kernel<BF16> : chunk_topk_kernel<INT8>;
+  void (*kern)(Args) = n_adc > 0 ? chunk_topk_kernel<F32, true>
+                       : kind == F32 ? chunk_topk_kernel<F32, false>
+                       : kind == BF16 ? chunk_topk_kernel<BF16, false> : chunk_topk_kernel<INT8, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        CHUNK_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -507,12 +683,9 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   kern<<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t msmem = (size_t)a.chunks * (sizeof(float) + 2 * sizeof(int));
-  if (msmem > (size_t)MERGE_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   e = cudaFuncSetAttribute(merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MERGE_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  merge_kernel<<<Q, MERGE_THREADS, msmem, stream>>>(part_d, part_i, a.chunks, a.kc, k, out_d,
-                                                     out_i);
+  merge_kernel<<<Q, mw * 32, msmem, stream>>>(part_d, part_i, a.chunks, a.kc, k, out_d, out_i);
   return static_cast<int>(cudaGetLastError());
 }
 

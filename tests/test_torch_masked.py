@@ -370,3 +370,99 @@ def test_cuda_concurrent_exact_and_adc_launches(cuda):
     for t in threads:
         t.join()
     assert not errors, errors[:3]
+
+
+# -- the chunked select's edges (card only) ------------------------------------
+# The kernel sorts each 512-row chunk and merges the chunks' lists (one warp
+# for up to 32 chunks; up to 16 warps of 32 lists and a second level over
+# their streams; lanes that own several lists past 512 chunks).
+
+
+def _select_case(name, n=1800, q=4, d=16):
+    """(queries, points, luts, codes, plane) over several 512-row chunks, the
+    last one short."""
+    rng = np.random.default_rng(n + len(name))
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    luts = rng.normal(size=(q, M_SUB, K_CODE)).astype(np.float32)
+    codes = rng.integers(0, K_CODE, size=(n, M_SUB)).astype(np.uint8)
+    plane = rng.random((q, n)) < 0.5
+    if name == "equal":  # integer values, every score of a query equal: ties across chunks
+        X[:] = 1.0
+        Q = np.round(Q)
+        luts[:] = 1.0
+        plane[:] = True
+    elif name == "gaps":  # chunks with fewer live rows than kc, one fully masked between
+        plane[:] = False
+        plane[:, :3] = True
+        plane[:, 1024:1124] = True
+        plane[:, 1700:1790] = True
+    elif name == "zeros":  # zero query rows and zero points: ip scores of 0.0, tied by id
+        Q[::2] = 0.0
+        X[::3] = 0.0
+    return Q, X, luts, codes, plane
+
+
+def _select_checks(dev, Q, X, luts, codes, plane, k, metric):
+    """Every masked kernel against its plain version (ids equal; exact
+    distances within tolerance, ADC bit for bit) and unified against the
+    split kernels bit for bit; returns {op: (dists, ids)} on the host."""
+    q, x, lt, c, m, p = _on(dev, Q, X, luts, codes, plane[0], plane)
+    fl = torch.as_tensor(_flavors(Q.shape[0], "mixed")).to(dev)
+    calls = {
+        "exact": lambda b: ops.masked_exact_topk(q, x, m, k, metric=metric, backend=b),
+        "exact_multi": lambda b: ops.masked_exact_topk_multi(q, x, p, k, metric=metric, backend=b),
+        "pq": lambda b: ops.masked_pq_topk(lt, c, m, k, backend=b),
+        "pq_multi": lambda b: ops.masked_pq_topk_multi(lt, c, p, k, backend=b),
+        "unified": lambda b: ops.unified_masked_topk(q, x, lt, c, p, fl, k, metric=metric, backend=b),
+    }
+    got = {}
+    for name, fn in calls.items():
+        g, w = fn("auto"), fn("ref")
+        torch.cuda.synchronize()
+        g, w = [a.cpu() for a in g], [a.cpu() for a in w]
+        if name.startswith("pq"):
+            assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]), name
+        else:
+            _assert_topk(g, w, _atol(Q, X))
+        got[name] = g
+    rows = torch.arange(q.shape[0], dtype=torch.int32, device=dev)
+    ex = kmasked.masked_exact_topk(q, x, p.to(torch.uint8), rows, k, metric=metric)
+    pq = kmasked.masked_pq_topk(lt, c, p.to(torch.uint8), rows, k)
+    f = fl.cpu()[:, None]
+    for a, e, b in zip(got["unified"], ex, pq):
+        assert torch.equal(a, torch.where(f, b.cpu(), e.cpu()))
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 511, 512, 513, 1805])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_select_k_around_the_chunk_matches_plain(cuda, k, metric):
+    """N = 1,800 (four chunks, the last of 264 rows), k from 1 to N + 5."""
+    _select_checks(cuda, *_select_case("random"), k, metric)
+
+
+@pytest.mark.parametrize("n, k", [(1800, 1000), (20580, 600), (300_000, 600)])
+def test_cuda_equal_scores_take_ids_in_order(cuda, n, k):
+    """Every score equal: ids 0 .. k-1 across chunk boundaries, through one
+    merge warp (4 chunks), two warps and the second level (41 chunks) and
+    16 warps whose lanes own several lists (586 chunks)."""
+    got = _select_checks(cuda, *_select_case("equal", n=n, q=2, d=4), k, "l2")
+    for name, (_d, ids) in got.items():
+        assert ids.tolist() == [list(range(k))] * 2, name
+
+
+@pytest.mark.parametrize("case", ["gaps", "zeros"])
+@pytest.mark.parametrize("k", [40, 160, 600])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_select_gaps_and_signed_zeros_match_plain(cuda, case, k, metric):
+    """Chunks with fewer live rows than kc and a fully masked chunk between
+    live ones; ip scores of -0.0 and +0.0 (zero query rows, zero points),
+    which tie and go to the lowest id."""
+    Q, X, luts, codes, plane = _select_case(case)
+    got = _select_checks(cuda, Q, X, luts, codes, plane, k, metric)
+    if case == "zeros" and metric == "ip":  # query rows 0 and 2 are zero: every passing row ties
+        for name, masks in (("exact", plane[[0, 0]]), ("exact_multi", plane[[0, 2]])):
+            for row, passing in zip(got[name][1][[0, 2]].tolist(), masks):
+                want = np.flatnonzero(passing)[:k].tolist()
+                assert row == want + [-1] * (k - len(want)), name

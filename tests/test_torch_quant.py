@@ -341,3 +341,51 @@ def test_cuda_pq_scan_equals_plain_bit_for_bit(cuda, shape):
     want = ops.pq_scan(luts, codes, backend="ref")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# -- the chunked select's edges in the quantized scans (card only) ------------
+
+def _select_case(name, n=1800, q=4, d=16):
+    """(queries, points, plane) over four 512-row chunks, the last short."""
+    rng = np.random.default_rng(n + len(name) + 7)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    plane = rng.random((q, n)) < 0.5
+    if name == "equal":  # every score of a query equal: ties across chunks
+        X[:] = 1.0
+        plane[:] = True
+    elif name == "gaps":  # chunks with fewer live rows than kc, one fully masked between
+        plane[:] = False
+        plane[:, :3] = True
+        plane[:, 1024:1124] = True
+        plane[:, 1700:1790] = True
+    elif name == "zeros":  # zero query rows and zero points: ip scores of 0.0, tied by id
+        Q[::2] = 0.0
+        X[::3] = 0.0
+    return Q, X, plane
+
+
+@pytest.mark.parametrize("case", ["random", "equal", "gaps", "zeros"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_quantized_select_edges_match_plain(cuda, case, dtype, metric):
+    """k = 160 (the quantized pool) over several chunks: random scores,
+    every score equal (ids 0 .. 159), chunks with few or no live rows, and
+    ip scores of 0.0 on zero query rows (ids in order)."""
+    Q, X, plane = _select_case(case)
+    k = planner.quant_guard_pool(40)
+    q, x, m, p = _on(cuda, Q, X, plane[0], plane)
+    unique, idx = _dedup(plane, 2)
+    u, i = _on(cuda, unique, idx)
+    tol = 1e-5 * (float(np.max(np.sum(Q * Q, 1))) + float(np.max(np.sum(X * X, 1))) + 1.0)
+    for fn, args, masks in ((ops.masked_exact_topk, (q, x, m), plane[[0] * len(Q)]),
+                            (ops.masked_exact_topk_multi, (q, x, p), plane),
+                            (ops.masked_exact_topk_dedup, (q, x, u, i), unique[idx])):
+        got = fn(*args, k, metric=metric, dtype=dtype)
+        want = fn(*args, k, metric=metric, dtype=dtype, backend="ref")
+        torch.cuda.synchronize()
+        _assert_close_ids(got, want, tol)
+        tied = {"equal": range(len(Q)), "zeros": range(0, len(Q), 2) if metric == "ip" else ()}
+        for qi in tied.get(case, ()):
+            passing = np.flatnonzero(masks[qi])[:k].tolist()
+            assert got[1][qi].tolist() == passing + [-1] * (k - len(passing)), (fn.__name__, qi)
