@@ -62,12 +62,17 @@ dedup'd plane, stored against fresh quantization) and the dense
 ``pq_scan`` (bit for bit) against their plain versions, and times each
 exact scan (f32, bf16, int8) at k = 1, 40 and 160 and under an all-zero
 mask (the k sweep: k = 1 is about the scoring, the growth in k the
-select).  ``--parent DIR`` then holds ``masked_topk.cu`` of the checkout
-``DIR`` against this one's (equal bits on every launch name, times in
-turns); ``--only-kernels`` stops after phase 2 without the result lines.
+select).  It times ``gather_rerank`` at search_pq's pool and at the
+quantized scan's guard, and ``kmeans_assign`` at shard ownership and at
+PQ encoding.  ``--parent DIR`` then holds ``masked_topk.cu``,
+``rerank.cu`` (``gather_rerank``) and ``kmeans_assign.cu`` of the
+checkout ``DIR`` against this one's (equal bits on every launch name,
+times in turns); ``--only-kernels`` stops after phase 2 without the
+result lines.
 
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
-them after; each kernel but ``pq_scan`` must have run on these paths
+them after (``kmeans_assign`` also by (D, K), ``gather_rerank`` by
+(P, k)); each kernel but ``pq_scan`` must have run on these paths
 (``pq_scan`` has no production caller, in this package or the reference,
 so phase 2 alone holds it).  The line before the last is the ``kernels``
 JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -166,6 +171,38 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, inner: int = 20, reps: int = 15) -> float:
+    """Device time of one call of ``fn`` (ms): ``inner`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times between CUDA events, the
+    median over replays.  Replay leaves out the host's dispatch (Python,
+    ctypes, the wrapper's checks), which an event pair around one call of a
+    few-microsecond kernel (``time_ms``) measures instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    del graph
+    return float(np.median(times))
+
+
 def mixture(
     n: int,
     d: int,
@@ -256,7 +293,16 @@ def check_rerank_distances(torch, ops, dev, q, x, metric):
     return _close(got, want, atol=1e-5 * _scale(q, x))
 
 
+# the shapes phase 2 held against the plain version: gather_rerank by
+# (P, k), kmeans_assign by (D, K); every shape phases 3-8 launch must be here
+CHECKED: dict = {"gather_rerank": set(), "kmeans_assign": set()}
+# graph-replay times of rows 1-3, beside their host-inclusive ms, plain_ms
+# and library_ms
+DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
+
+
 def check_gather_rerank(torch, ops, q, x, pids, k, metric):
+    CHECKED["gather_rerank"].add((pids.shape[1], k))
     gd, gi = ops.gather_rerank(q, x, pids, k, metric=metric)
     wd, wi = ops.gather_rerank(q, x, pids, k, metric=metric, backend="ref")
     torch.cuda.synchronize()
@@ -271,6 +317,7 @@ def check_gather_rerank(torch, ops, q, x, pids, k, metric):
 
 
 def check_kmeans_assign(torch, ops, x, c):
+    CHECKED["kmeans_assign"].add((x.shape[1], c.shape[0]))
     gi, gd = ops.kmeans_assign(x, c)
     wi, wd = ops.kmeans_assign(x, c, backend="ref")
     torch.cuda.synchronize()
@@ -315,18 +362,23 @@ def phase_kernels(torch, dev, shard_n: int, seed: int):
                  ((100, 128), (4000, 128), "ip")]:
         (qs, xs, metric) = args
         check_rerank_distances(torch, ops, dev, t(rng.normal(size=qs)), t(rng.normal(size=xs)), metric)
-    ms = time_ms(torch, lambda: ops.exact_distances(q, x))
-    plain = time_ms(torch, lambda: ops.exact_distances(q, x, backend="ref"))
+    def timings(kernel, plain, lib):
+        """Rows 1-3 are microsecond kernels.  ms, plain_ms and library_ms
+        are host-inclusive (time_ms), as in every other row; the *device_ms
+        twins are graph replay (device_ms), without the host's dispatch."""
+        return dict(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
+                    library_ms=time_ms(torch, lib), device_ms=device_ms(torch, kernel),
+                    plain_device_ms=device_ms(torch, plain), library_device_ms=device_ms(torch, lib))
 
     def lib():
         q2 = (q * q).sum(1, keepdim=True)
         x2 = (x * x).sum(1)[None, :]
         return torch.addmm(q2 + x2, q, x.T, alpha=-2.0)
 
-    lib_ms = time_ms(torch, lib)
+    times = timings(lambda: ops.exact_distances(q, x), lambda: ops.exact_distances(q, x, backend="ref"), lib)
     b, by = bound_ms(2 * 100 * 4000 * 128, 4 * (100 + 4000) * 128 + 4 * 100 * 4000)
-    rows["rerank_distances"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                                    bound_ms=b, bound_by=by, shape="Q=100 N=4000 D=128 l2")
+    rows["rerank_distances"] = dict(max_abs_err=err, **times, bound_ms=b, bound_by=by,
+                                    shape="Q=100 N=4000 D=128 l2")
     gq, gx = t(rng.normal(size=(1000, 128))), t(rng.normal(size=(shard_n * 4, 128)))
     check_rerank_distances(torch, ops, dev, gq[:50], gx, "l2")
     g_ms = time_ms(torch, lambda: ops.exact_distances(gq, gx), reps=5, warmup=1)
@@ -356,50 +408,74 @@ def phase_kernels(torch, dev, shard_n: int, seed: int):
         check_gather_rerank(torch, ops, sq, small, dup, 5, metric)  # duplicates
         odd_q, odd_x = t(rng.normal(size=(5, 33))), t(rng.normal(size=(70, 33)))
         check_gather_rerank(torch, ops, odd_q, odd_x, _pool_ids(torch, rng, 5, 70, 19, dev), 7, metric)
-    ms = time_ms(torch, lambda: ops.gather_rerank(qq, pts, pids, 40))
-    plain = time_ms(torch, lambda: ops.gather_rerank(qq, pts, pids, 40, backend="ref"))
+        # a pool past one warp's sort (the block sorts it), k past P
+        big = _pool_ids(torch, rng, 8, shard_n, 600, dev)
+        check_gather_rerank(torch, ops, qq[:8].contiguous(), pts, big, 40, metric)
+        check_gather_rerank(torch, ops, qq[:8].contiguous(), pts, big, 605, metric)
+        # the filtered beams' reranks: P = 298 (a warp sorts 16 keys a lane)
+        # at k = 160, and Stage A at k = 80
+        check_gather_rerank(torch, ops, qq, pts, _pool_ids(torch, rng, 64, shard_n, 298, dev), 160, metric)
+        check_gather_rerank(torch, ops, qq, pts, pids, 80, metric)
 
-    def lib():
-        safe = pids.clamp(0, shard_n - 1).long()
-        v = pts[safe]
-        d = (v * v).sum(-1) - 2 * torch.einsum("qpd,qd->qp", v, qq) + (qq * qq).sum(-1, keepdim=True)
-        d = torch.where((pids < 0) | (pids >= shard_n), float("inf"), d)
-        return torch.topk(d, 40, dim=1, largest=False)
+    def gather_row(qq, pts, pids, k, err):
+        n = pts.shape[0]
 
-    lib_ms = time_ms(torch, lib)
-    # every live slot is scored (duplicates twice, as the reference does),
-    # but each distinct row need only be read once
-    in_range = (pids >= 0) & (pids < shard_n)
-    live, rows_read = int(in_range.sum()), int(torch.unique(pids[in_range]).numel())
-    b, by = bound_ms(3 * live * 128, 4 * rows_read * 128 + 4 * 64 * 128 + 4 * 64 * 238 + 8 * 64 * 40)
-    rows["gather_rerank"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                                 bound_ms=b, bound_by=by, shape=f"Q=64 P=238 D=128 k=40 N={shard_n}")
+        def lib():
+            safe = pids.clamp(0, n - 1).long()
+            v = pts[safe]
+            d = (v * v).sum(-1) - 2 * torch.einsum("qpd,qd->qp", v, qq) + (qq * qq).sum(-1, keepdim=True)
+            d = torch.where((pids < 0) | (pids >= n), float("inf"), d)
+            return torch.topk(d, k, dim=1, largest=False)
+
+        times = timings(lambda: ops.gather_rerank(qq, pts, pids, k),
+                        lambda: ops.gather_rerank(qq, pts, pids, k, backend="ref"), lib)
+        # every live slot is scored (duplicates twice, as the reference does),
+        # but each distinct row need only be read once
+        (nq, p), d = pids.shape, qq.shape[1]
+        in_range = (pids >= 0) & (pids < n)
+        live, rows_read = int(in_range.sum()), int(torch.unique(pids[in_range]).numel())
+        b, by = bound_ms(3 * live * d, 4 * rows_read * d + 4 * nq * d + 4 * nq * p + 8 * nq * k)
+        return dict(max_abs_err=err, **times, bound_ms=b, bound_by=by,
+                    shape=f"Q={nq} P={p} D={d} k={k} N={n}", launch_shape=(p, k))
+
+    main = gather_row(qq, pts, pids, 40, err)
+    # the quantized scan's full-precision guard (phase 7): quant_guard_pool(40)
+    # = 160 candidates of a 4,096-row shard, 100 queries
+    gpts, gq = t(rng.normal(size=(SMALL_SHARD, 128))), t(rng.normal(size=(100, 128)))
+    gpids = _pool_ids(torch, rng, 100, SMALL_SHARD, 160, dev)
+    g_err = check_gather_rerank(torch, ops, gq, gpts, gpids, 40, "l2")
+    check_gather_rerank(torch, ops, gq, gpts, gpids, 40, "ip")
+    rows["gather_rerank"] = dict(main, shapes=[main, gather_row(gq, gpts, gpids, 40, g_err)])
     del pts
 
     # ---- kmeans_assign: shard ownership (one executor's scan, K = 16 at
     # D = 128), and PQ encoding (an 8,192-row batch, K = 256 at D = 4)
+    def kmeans_row(xs, cs, err):
+        (n, d), k = xs.shape, cs.shape[0]
+        times = timings(lambda: ops.kmeans_assign(xs, cs), lambda: ops.kmeans_assign(xs, cs, backend="ref"),
+                        lambda: torch.cdist(xs, cs).argmin(1))
+        b, by = bound_ms(2 * n * k * d, 4 * n * d + 4 * k * d + 8 * n)
+        return dict(max_abs_err=err, **times, bound_ms=b, bound_by=by, shape=f"N={n} K={k} D={d}",
+                    launch_shape=(d, k))
+
     xs = t(rng.normal(size=(shard_n, 128)))
     cs = t(rng.normal(size=(16, 128)))
     err = check_kmeans_assign(torch, ops, xs, cs)
-    for n, k, d in [(8192, 256, 4), (1, 1, 1), (1000, 300, 33), (777, 5, 70), (4097, 17, 128)]:
+    # (8192, 128, 128): Stage 0 of the small-shard catalog (32 shards x 4
+    # partitions on the 8,192-row sample), centroids in two shared-memory tiles
+    for n, k, d in [(1, 1, 1), (1000, 300, 33), (777, 5, 70), (4097, 17, 128), (3000, 16, 130),
+                    (2000, 16, 400), (8192, 128, 128)]:
         check_kmeans_assign(torch, ops, t(rng.normal(size=(n, d))), t(rng.normal(size=(k, d))))
-    ms = time_ms(torch, lambda: ops.kmeans_assign(xs, cs))
-    plain = time_ms(torch, lambda: ops.kmeans_assign(xs, cs, backend="ref"))
-    lib_ms = time_ms(torch, lambda: torch.cdist(xs, cs).argmin(1))
-    b, by = bound_ms(2 * shard_n * 16 * 128, 4 * shard_n * 128 + 4 * 16 * 128 + 8 * shard_n)
-    rows["kmeans_assign"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                                 bound_ms=b, bound_by=by, shape=f"N={shard_n} K=16 D=128")
     ex, ec = t(rng.normal(size=(8192, 4))), t(rng.normal(size=(256, 4)))
-    e_ms = time_ms(torch, lambda: ops.kmeans_assign(ex, ec))
-    e_plain = time_ms(torch, lambda: ops.kmeans_assign(ex, ec, backend="ref"))
-    e_lib = time_ms(torch, lambda: torch.cdist(ex, ec).argmin(1))
-    eb, eby = bound_ms(2 * 8192 * 256 * 4, 4 * 8192 * 4 + 4 * 256 * 4 + 8 * 8192)
-    log(f"kmeans_assign PQ-encode batch N=8192 K=256 D=4: kernel {e_ms:.4f} ms, plain {e_plain:.4f} ms, "
-        f"library {e_lib:.4f} ms, bound {eb:.5f} ms ({eby})")
-    for name, r in rows.items():
-        log(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
-            f"max abs err {r['max_abs_err']:.3g}")
+    main = kmeans_row(xs, cs, err)
+    rows["kmeans_assign"] = dict(main, shapes=[main, kmeans_row(ex, ec, check_kmeans_assign(torch, ops, ex, ec))])
+    for name, row in rows.items():
+        for r in row.get("shapes", [row]):
+            log(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms (with the host's dispatch); on the device (graph replay) kernel "
+                f"{r['device_ms']:.4f} ms, plain {r['plain_device_ms']:.4f} ms, library "
+                f"{r['library_device_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                f"max abs err {r['max_abs_err']:.3g}")
     return rows
 
 
@@ -787,50 +863,186 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
     return rows
 
 
-# -- --parent: masked_topk.cu of another checkout beside this one's ------------
+# -- --parent: the kernels of another checkout beside this one's ---------------
 
 # every launch name of csrc/masked_topk.cu
 MASKED_NAMES = tuple(n for n, (src, _) in KERNELS.items() if src == MASKED_CU)
+# the sources --parent builds from the other checkout
+PARENT_SOURCES = ("masked_topk", "kmeans_assign", "rerank")
 
 
-def _parent_lib(parent: str):
-    """``csrc/masked_topk.cu`` of the checkout ``parent``, built with the
-    package's own nvcc flags into ``build/`` and loaded beside this
-    checkout's library."""
+def _parent_libs(parent: str) -> dict:
+    """``csrc/<name>.cu`` of the checkout ``parent`` for each of
+    PARENT_SOURCES, built with the package's own nvcc flags (one nvcc a
+    source, all started together) into ``build/`` and loaded beside this
+    checkout's libraries, each under its own name."""
     import ctypes
 
     from repro_torch.kernels import _build
 
-    src = Path(parent).resolve() / "src/repro_torch/kernels/csrc/masked_topk.cu"
-    out = _build.BUILD_DIR / "parent" / "libmasked_topk.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in PARENT_SOURCES:
+        src = Path(parent).resolve() / f"src/repro_torch/kernels/csrc/{name}.cu"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{log_text}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
 
 
-def _launching(lib) -> None:
-    """Make the masked wrappers launch from ``lib`` (a library of
-    ``masked_topk.cu``)."""
+def _launching(name: str, lib) -> None:
+    """Make the wrappers of ``csrc/<name>.cu`` launch from ``lib``."""
     from repro_torch.kernels import _build
 
     with _build._lock:
-        _build._libs["masked_topk"] = lib
+        _build._libs[name] = lib
+
+
+def _turns(torch, name: str, old, new, fn, timer=None):
+    """(parent ms, change ms) of ``fn``, each the mean of two medians timed
+    by ``timer`` (default ``time_ms``) in turns (parent, change, change,
+    parent) with ``csrc/<name>.cu`` from ``old`` and ``new``."""
+    timer = timer or time_ms
+    t = []
+    for lib in (old, new, new, old):
+        _launching(name, lib)
+        t.append(timer(torch, fn))
+    _launching(name, new)
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def _same_bits(torch, name: str, old, new, calls, what: str) -> dict:
+    """Run ``calls`` (label, fn) with ``csrc/<name>.cu`` from ``old`` and
+    then ``new``; every output pair must have equal bits (f32 outputs
+    compared as int32 views), and the calls must launch at least once
+    each.  Returns the launch counts by name."""
+    from repro_torch.kernels import _build
+
+    outs = {}
+    for lib, who in ((old, "parent"), (new, "change")):
+        _launching(name, lib)
+        _build.reset_launch_counts()
+        outs[who] = [fn() for _label, fn in calls]
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        launched = sum(counts.values())
+        if launched < len(calls):
+            raise AssertionError(f"--parent {what}: the {who} build launched {launched} of {len(calls)}")
+    _launching(name, new)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    bad = [label for (label, _), a, b in zip(calls, outs["parent"], outs["change"])
+           if not all(torch.equal(bits(u), bits(v)) for u, v in zip(a, b))]
+    if bad:
+        raise AssertionError(f"--parent {what}: outputs differ from the parent's: {bad}")
+    log(f"parent vs change {what}: {len(calls)} calls over {len(counts)} launch names give equal bits "
+        f"(f32 as int32 views) and ids")
+    return counts
+
+
+def _parent_rerank_kmeans(torch, dev, shard_n: int, seed: int, libs: dict, old: dict) -> None:
+    """gather_rerank (csrc/rerank.cu) and kmeans_assign
+    (csrc/kmeans_assign.cu) of the parent against this checkout's: equal
+    bits on seeded inputs, then the phase-2 timed shapes in turns."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed + 5)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    # ---- gather_rerank: pools as search_pq's (sorted, some sentinels,
+    # duplicates and ids >= N) at P = 1, 160, 238, 298, 600, k = 1, 40,
+    # 160, P + 5
+    calls = []
+    data = {}
+    for n in (SMALL_SHARD, shard_n):
+        pts = t(rng.normal(size=(n, 128)))
+        for p in (1, 160, 238, 298, 600):
+            q = t(rng.normal(size=(64, 128)))
+            pids = _pool_ids(torch, rng, 64, n, p, dev)
+            data[(n, p)] = (q, pts, pids)
+            for k in (1, 40, 160, p + 5):
+                for metric in ("l2", "ip"):
+                    calls.append((f"N={n} P={p} k={k} {metric}", lambda q=q, x=pts, i=pids, k=k, m=metric:
+                                  ops.gather_rerank(q, x, i, k, metric=m)))
+    small, sq = t(rng.normal(size=(50, 16))), t(rng.normal(size=(4, 16)))
+    sent = torch.full((4, 8), -1, dtype=torch.int32, device=dev)
+    sent[0, :3] = torch.tensor([5, 7, 50])
+    sent[1, 0] = 999
+    dup = _pool_ids(torch, rng, 4, 50, 12, dev, dup_frac=0.5)
+    odd_q, odd_x = t(rng.normal(size=(5, 33))), t(rng.normal(size=(70, 33)))
+    odd_p = _pool_ids(torch, rng, 5, 70, 19, dev)
+    for metric in ("l2", "ip"):
+        calls += [
+            (f"sentinels {metric}", lambda m=metric: ops.gather_rerank(sq, small, sent, 8, metric=m)),
+            (f"k > P {metric}", lambda m=metric: ops.gather_rerank(sq, small, sent[:, :3].contiguous(), 10, metric=m)),
+            (f"k > N {metric}", lambda m=metric: ops.gather_rerank(sq, small[:4].contiguous(), sent.clamp(max=5), 9, metric=m)),
+            (f"duplicates {metric}", lambda m=metric: ops.gather_rerank(sq, small, dup, 5, metric=m)),
+            (f"D=33 {metric}", lambda m=metric: ops.gather_rerank(odd_q, odd_x, odd_p, 7, metric=m)),
+        ]
+    _same_bits(torch, "rerank", old["rerank"], libs["rerank"], calls, "gather_rerank")
+
+    # ---- kmeans_assign: the PQ shape, small D at ragged K, and D >= 64
+    kcalls = []
+    shapes = [(8192, 256, 4)] + [(4097, k, d) for d in (1, 4, 33) for k in (1, 5, 256, 300)]
+    shapes += [(shard_n, 16, 128), (8192, 128, 128), (4097, 17, 128), (1000, 300, 128), (777, 5, 70),
+               (3000, 16, 130), (2000, 16, 400)]
+    kdata = {}
+    for n, k, d in shapes:
+        x, c = t(rng.normal(size=(n, d))), t(rng.normal(size=(k, d)))
+        kdata[(n, k, d)] = (x, c)
+        kcalls.append((f"N={n} K={k} D={d}", lambda x=x, c=c: ops.kmeans_assign(x, c)))
+    _same_bits(torch, "kmeans_assign", old["kmeans_assign"], libs["kmeans_assign"], kcalls,
+               "kmeans_assign")
+
+    # ---- the phase-2 timed shapes, in turns
+    q, pts, pids = data[(shard_n, 238)]
+    timed = [("gather_rerank", "rerank", f"Q=64 P=238 D=128 k={k} N={shard_n}",
+              lambda k=k: ops.gather_rerank(q, pts, pids, k)) for k in SWEEP_K]
+    gq, gpts = t(rng.normal(size=(100, 128))), t(rng.normal(size=(SMALL_SHARD, 128)))
+    gpids = _pool_ids(torch, rng, 100, SMALL_SHARD, 160, dev)
+    timed.append(("gather_rerank", "rerank", f"Q=100 P=160 D=128 k=40 N={SMALL_SHARD} (guard)",
+                  lambda: ops.gather_rerank(gq, gpts, gpids, 40)))
+    for shape in ((shard_n, 16, 128), (8192, 256, 4), (8192, 128, 128)):
+        x, c = kdata[shape]
+        timed.append(("kmeans_assign", "kmeans_assign", f"N={shape[0]} K={shape[1]} D={shape[2]}",
+                      lambda x=x, c=c: ops.kmeans_assign(x, c)))
+    for name, src, shape, fn in timed:
+        a, b = _turns(torch, src, old[src], libs[src], fn, timer=device_ms)
+        ha, hb = _turns(torch, src, old[src], libs[src], fn)
+        log(f"parent vs change {name} [{shape}]: parent {a:.4f} ms, change {b:.4f} ms, "
+            f"change/parent {b / a:.3f} (device); with the host's dispatch {ha:.4f} / {hb:.4f} ms")
 
 
 def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
-    """``--parent DIR``: this checkout's masked top-k kernels against those
+    """``--parent DIR``: this checkout's kernels of ``masked_topk.cu``,
+    ``rerank.cu`` (``gather_rerank``) and ``kmeans_assign.cu`` against those
     of ``DIR`` (an earlier commit's tree).  Every launch name of
     ``masked_topk.cu`` on seeded phase-2 inputs (N = 4,096 and one shard;
     both metrics, the 50 % row mask and the dedup'd plane of ten price
     masks, k = 40 and 160) gives the same distance bits and ids from both
-    builds; then the phase-2 timed calls and the k sweeps, timed in turns
-    (parent, change, change, parent) on this card."""
+    builds, and so do ``gather_rerank`` and ``kmeans_assign`` (see
+    ``_parent_rerank_kmeans``); then the phase-2 timed calls and the k
+    sweeps, timed in turns (parent, change, change, parent) on this card.
+    Returns the parent's libraries by source name."""
     from repro_torch.kernels import _build, ops, ref
 
-    new, old = _build.load("masked_topk"), _parent_lib(parent)
+    old_libs = _parent_libs(parent)
+    libs = {name: _build.load(name) for name in PARENT_SOURCES}
+    _parent_rerank_kmeans(torch, dev, shard_n, seed, libs, old_libs)
+    new, old = libs["masked_topk"], old_libs["masked_topk"]
     rng = np.random.default_rng(seed + 4)
     Q, D, M, KC = 100, 128, 32, 256
     thresholds = (2, 3, 4, 5, 6, 100, 325, 550, 775, 1000)
@@ -845,57 +1057,34 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
         calls = []
         for k in (40, 160):
             calls += [
-                ("masked_pq_topk", k, "", lambda k=k: ops.masked_pq_topk(luts, codes, wide, k)),
-                ("masked_pq_topk_multi", k, "",
+                (f"masked_pq_topk k={k}", lambda k=k: ops.masked_pq_topk(luts, codes, wide, k)),
+                (f"masked_pq_topk_multi k={k}",
                  lambda k=k: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, k)),
             ]
             for metric in ("l2", "ip"):
                 calls += [
-                    ("masked_exact_topk", k, metric,
+                    (f"masked_exact_topk k={k} {metric}",
                      lambda k=k, mt=metric: ops.masked_exact_topk(q, x, wide, k, metric=mt)),
-                    ("masked_exact_topk_multi", k, metric,
+                    (f"masked_exact_topk_multi k={k} {metric}",
                      lambda k=k, mt=metric: ops.masked_exact_topk_dedup(q, x, uniq, idx, k, metric=mt)),
-                    ("unified_masked_topk", k, metric,
+                    (f"unified_masked_topk k={k} {metric}",
                      lambda k=k, mt=metric: ops.unified_masked_topk_dedup(
                          q, x, luts, codes, uniq, idx, flavor, k, metric=mt)),
                 ]
                 for dt, (st, xs) in quant.items():
                     kw = dict(metric=metric, dtype=dt, x_scale=xs)
                     calls += [
-                        (f"masked_exact_topk_{dt}", k, metric,
+                        (f"masked_exact_topk_{dt} k={k} {metric}",
                          lambda k=k, st=st, kw=kw: ops.masked_exact_topk(q, st, wide, k, **kw)),
-                        (f"masked_exact_topk_multi_{dt}", k, metric,
+                        (f"masked_exact_topk_multi_{dt} k={k} {metric}",
                          lambda k=k, st=st, kw=kw: ops.masked_exact_topk_dedup(q, st, uniq, idx, k, **kw)),
                     ]
-        counts = {}
-        for lib, what in ((old, "parent"), (new, "change")):
-            _launching(lib)
-            _build.reset_launch_counts()
-            outs = [fn() for _name, _k, _m, fn in calls]
-            torch.cuda.synchronize()
-            counts[what] = _build.launch_counts()
-            if what == "parent":
-                want = outs
-        _launching(new)
-        for c in ("parent", "change"):
-            if set(counts[c]) != set(MASKED_NAMES):
-                raise AssertionError(f"--parent N={n}: the {c} build launched {sorted(counts[c])}")
-        bad = [f"{name} k={k} {m}" for (name, k, m, _), a, b in zip(calls, want, outs)
-               if not (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
-                       and torch.equal(a[1], b[1]))]
-        if bad:
-            raise AssertionError(f"--parent N={n}: outputs differ from the parent's: {bad}")
-        log(f"parent vs change N={n}: {len(calls)} calls over the {len(MASKED_NAMES)} launch names "
-            f"of masked_topk.cu give equal distance bits and ids")
+        counts = _same_bits(torch, "masked_topk", old, new, calls, f"masked_topk.cu N={n}")
+        if set(counts) != set(MASKED_NAMES):
+            raise AssertionError(f"--parent N={n}: launched {sorted(counts)}, not every masked launch name")
 
     def turns(fn):
-        """(parent ms, change ms), each the mean of two medians timed in turns."""
-        t = []
-        for lib in (old, new, new, old):
-            _launching(lib)
-            t.append(time_ms(torch, fn))
-        _launching(new)
-        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        return _turns(torch, "masked_topk", old, new, fn)
 
     st = quant  # the one-shard inputs of the last round
     timed = {
@@ -926,6 +1115,59 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
         name = "masked_exact_topk" + ("" if dt == "f32" else f"_{dt}")
         log(f"parent vs change k sweep {name} [Q=100 N={shard_n} D=128 mask 50%], parent / change ms: "
             + ", ".join(parts))
+    return old_libs
+
+
+def _shadow_main_path(torch, old_libs: dict) -> dict:
+    """``--parent DIR`` with the main path: from here on every
+    ``gather_rerank`` and ``kmeans_assign`` call on a CUDA tensor also runs
+    the parent's build of its source, on the same inputs and thread and
+    uncounted, and the two outputs are compared bit for bit.  Returns the
+    tally {name: [calls, calls whose bits differ]}, filled as phases 3-8
+    run."""
+    import threading
+
+    from repro_torch.kernels import _build, ops
+
+    local = threading.local()
+    load, count = _build.load, _build.count_launch
+
+    def shadow_load(name):
+        sub = getattr(local, "libs", None)
+        return sub[name] if sub and name in sub else load(name)
+
+    def shadow_count(name, shape=None):
+        if not getattr(local, "libs", None):
+            count(name, shape)
+
+    _build.load, _build.count_launch = shadow_load, shadow_count
+    tally: dict = {}
+    lock = threading.Lock()
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def wrap(name, src, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            if kw.get("backend", "auto") == "ref" or not out[0].is_cuda:
+                return out
+            local.libs = {src: old_libs[src]}
+            try:
+                old = fn(*a, **kw)
+            finally:
+                local.libs = None
+            same = all(torch.equal(bits(u), bits(v)) for u, v in zip(out, old))
+            with lock:
+                t = tally.setdefault(name, [0, 0])
+                t[0] += 1
+                t[1] += not same
+            return out
+        return call
+
+    ops.gather_rerank = wrap("gather_rerank", "rerank", ops.gather_rerank)
+    ops.kmeans_assign = wrap("kmeans_assign", "kmeans_assign", ops.kmeans_assign)
+    return tally
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -1001,6 +1243,7 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     build_launches = _build.launch_counts()
+    _add_shapes("3", _build.launch_shapes())
     log(f"create_index: {build_s:.1f} s (stage0 {rep.stage0_seconds:.2f} s, stage1 "
         f"{rep.stage1_seconds:.2f} s, stage2 {rep.stage2_seconds:.2f} s), shards {rep.num_shards}, "
         f"vectors {rep.vector_count}, puffin {rep.total_bytes} bytes, build_batch {BUILD_BATCH}")
@@ -1020,6 +1263,7 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
     torch.cuda.synchronize()
     probe_s = time.time() - t0
     probe_launches = _build.launch_counts()
+    _add_shapes("3", _build.launch_shapes())
     launches = {k: build_launches.get(k, 0) + probe_launches.get(k, 0) for k in MAIN_KERNELS}
     log(f"probe: {calls} calls x 100 queries in {probe_s:.1f} s = {calls * 100 / probe_s:.1f} QPS; "
         f"stage A {stage_a:.1f} s, stage B+C {stage_b:.1f} s")
@@ -1085,6 +1329,7 @@ def _run(torch, what, calls):
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = _build.launch_counts()
+    _add_shapes(what.split()[1], _build.launch_shapes())
     r0 = reports[0]
     if hasattr(r0, "plan"):
         log(f"{what}: {len(calls)} calls in {secs:.2f} s; plan "
@@ -1095,6 +1340,27 @@ def _run(torch, what, calls):
     else:
         log(f"{what}: {secs:.2f} s; launches {launches}")
     return reports, secs, launches
+
+
+# launches by phase, kernel and shape: kmeans_assign by (D, K),
+# gather_rerank by (P, k)
+SHAPES: dict = {}
+
+
+def _add_shapes(phase: str, shapes) -> None:
+    for name, by_shape in shapes.items():
+        into = SHAPES.setdefault(phase, {}).setdefault(name, {})
+        for shape, count in by_shape.items():
+            into[shape] = into.get(shape, 0) + count
+
+
+def _shape_totals(name: str) -> dict:
+    """Launches of ``name`` over phases 3-8, by shape."""
+    out: dict = {}
+    for by_kernel in SHAPES.values():
+        for shape, count in by_kernel.get(name, {}).items():
+            out[shape] = out.get(shape, 0) + count
+    return out
 
 
 def _add(total, launches):
@@ -1516,8 +1782,10 @@ def main() -> int:
     ap.add_argument("--small-n", type=int, default=131_072,
                     help="rows of the small-shard catalog of phase 6")
     ap.add_argument("--parent", metavar="DIR",
-                    help="after phase 2, hold masked_topk.cu of the checkout DIR (an earlier "
-                         "commit's tree) against this one's: equal bits, times in turns")
+                    help="after phase 2, hold masked_topk.cu, rerank.cu and kmeans_assign.cu of "
+                         "the checkout DIR (an earlier commit's tree) against this one's: equal "
+                         "bits, times in turns; without --only-kernels, also every gather_rerank "
+                         "and kmeans_assign call of phases 3-8, bit for bit")
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after phase 2 (and --parent), without the result lines")
     args = ap.parse_args()
@@ -1544,8 +1812,11 @@ def main() -> int:
     rows.update(timed("2 masked kernels", phase_masked_kernels, torch, dev, args.n // 4, args.seed))
     rows.update(timed("2 quantized scans + pq_scan", phase_quant_kernels, torch, dev, args.n // 4,
                       args.seed))
+    shadow = None
     if args.parent:
-        timed("2 parent vs change", phase_parent, torch, dev, args.n // 4, args.seed, args.parent)
+        old_libs = timed("2 parent vs change", phase_parent, torch, dev, args.n // 4, args.seed, args.parent)
+        if not args.only_kernels:
+            shadow = _shadow_main_path(torch, old_libs)
     if args.only_kernels:
         log(f"phase seconds: { {k: round(v, 2) for k, v in phase_s.items()} }")
         log("--only-kernels: phases 1-2 passed; the main path did not run")
@@ -1569,8 +1840,19 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}
+    if shadow is not None:
+        log(f"parent vs change on phases 3-8, every call also run on the parent's build: "
+            f"{ {name: f'{n} calls, {bad} with other bits' for name, (n, bad) in shadow.items()} }")
+        if sorted(shadow) != ["gather_rerank", "kmeans_assign"] or any(bad for _n, bad in shadow.values()):
+            raise AssertionError(f"--parent: the main path's outputs differ from the parent's build: {shadow}")
     log(f"launches by phase: {per_phase}")
+    log("launches by phase and shape (kmeans_assign by (D, K), gather_rerank by (P, k)): "
+        + "; ".join(f"phase {ph}: {by_kernel}" for ph, by_kernel in sorted(SHAPES.items())))
     log(f"phase seconds: { {k: round(v, 2) for k, v in phase_s.items()} }")
+    for name, checked in CHECKED.items():
+        missing = sorted(set(_shape_totals(name)) - checked)
+        if missing:
+            raise AssertionError(f"{name} ran at {missing} on phases 3-8: shapes phase 2 did not check")
     for name, count in launches.items():
         # pq_scan has no production caller (in either package): phase 2 holds it
         if count == 0 and name not in PHASE2_ONLY:
@@ -1582,9 +1864,17 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            **{key: r[key] for key in DEVICE_KEYS if key in r},
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
         })
+        if "shapes" in r:
+            by_shape = _shape_totals(name)
+            kernels[-1]["shapes"] = [
+                {key: v for key, v in sr.items() if key != "launch_shape"}
+                | {"launches": by_shape.get(sr["launch_shape"], 0)}
+                for sr in r["shapes"]
+            ]
     log(f"total {time.time() - t_start:.1f} s")
     print(smi, flush=True)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,10 +4,10 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 -shared -Xcompiler -fPIC``) and is loaded with ``ctypes`` —
 no PyTorch headers, so a build takes seconds.  The library name carries a
-hash of its source, so an edited kernel rebuilds and a stale build is never
-loaded.  Builds land in ``build/repro_torch_kernels/`` at the repository
-root (git-ignored); :func:`build_all` compiles every source in parallel,
-one ``nvcc`` per file.
+hash of its source and of the headers it includes, so an edited kernel
+rebuilds and a stale build is never loaded.  Builds land in
+``build/repro_torch_kernels/`` at the repository root (git-ignored);
+:func:`build_all` compiles every source in parallel, one ``nvcc`` per file.
 
 Nothing here runs at import time: the CPU test suite imports every module
 of the package and never builds a kernel.
@@ -15,7 +15,8 @@ of the package and never builds a kernel.
 Every wrapper that launches a kernel calls :func:`count_launch` right after
 a successful launch, and nowhere else; :func:`launch_counts` and
 :func:`reset_launch_counts` let a caller prove a code path went through the
-kernels.
+kernels.  A wrapper whose kernel runs at several shapes on the main path
+also names the shape, and :func:`launch_shapes` counts launches by it.
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -39,6 +41,7 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _counts: Dict[str, int] = {}
+_shapes: Dict[str, Dict[tuple, int]] = {}
 
 
 def sources() -> List[str]:
@@ -54,8 +57,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    ``csrc/`` header the source includes with quotes."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(text)
+    for header in re.findall(rb'^\s*#include\s+"([^"]+)"', text, flags=re.M):
+        h.update((CSRC / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(names: List[str]) -> None:
@@ -114,9 +122,12 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: Optional[tuple] = None) -> None:
     with _lock:
         _counts[name] = _counts.get(name, 0) + 1
+        if shape is not None:
+            by_shape = _shapes.setdefault(name, {})
+            by_shape[shape] = by_shape.get(shape, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -124,6 +135,13 @@ def launch_counts() -> Dict[str, int]:
         return dict(_counts)
 
 
+def launch_shapes() -> Dict[str, Dict[tuple, int]]:
+    """Launches by shape, for the wrappers that name one."""
+    with _lock:
+        return {name: dict(by_shape) for name, by_shape in _shapes.items()}
+
+
 def reset_launch_counts() -> None:
     with _lock:
         _counts.clear()
+        _shapes.clear()

@@ -5,7 +5,8 @@
 lowest index) and the minimum of the expanded squared distance over K
 centroids.  It takes CUDA tensors only and raises for any other; the plain
 version (``ref.kmeans_assign``) is chosen in ``kernels/ops.py``.  The
-kernel note is in the CUDA source.
+kernel note is in the CUDA source.  Launches are counted by (D, K): PQ
+encoding runs at D = 4, K = 256, shard ownership at D = 128.
 """
 
 from __future__ import annotations
@@ -50,5 +51,5 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor):
             out_d.data_ptr(), n, k, d, _stream(points),
         )
     _build.check(lib, rc, "kmeans_assign")
-    _build.count_launch("kmeans_assign")
+    _build.count_launch("kmeans_assign", shape=(d, k))
     return out_i, out_d

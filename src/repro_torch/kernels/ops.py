@@ -398,12 +398,12 @@ def gather_rerank(
     ids; slots < 0 or >= N are sentinels) -> (dists (Q, k), ids (Q, k)),
     ascending, (+inf, -1) beyond the live pool.  ``k`` may exceed P."""
     q, x = _f32(queries), _f32(points)
-    pids = pool_ids.to(device=q.device, dtype=torch.int32)
-    n0 = x.shape[0]
-    # out-of-range ids (stale pools, clipped host fills) become sentinels
-    pids = torch.where((pids < 0) | (pids >= n0), -1, pids).contiguous()
+    pids = pool_ids.to(device=q.device, dtype=torch.int32).contiguous()
     if _use_kernel(backend, q, x, pids):
+        # the kernel reads ids < 0 and >= N as sentinels itself
         return _gather_rerank_kernel(q, x, pids, int(k), metric=metric)
+    # out-of-range ids (stale pools, clipped host fills) become sentinels
+    pids = torch.where((pids < 0) | (pids >= x.shape[0]), -1, pids)
     return ref.gather_rerank(q, x, pids, int(k), metric=metric)
 
 

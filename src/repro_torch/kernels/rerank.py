@@ -6,7 +6,7 @@ gather-rerank (CUDA sources in ``csrc/rerank.cu``).
   or -q.x.
 - :func:`gather_rerank` replaces ``gather_rerank_pallas``: exact distances
   from each query to its own P candidate ids, ascending top-k, (+inf, -1)
-  for sentinel slots.
+  for sentinel slots.  Its launches are counted by (P, k).
 
 Each wrapper takes CUDA tensors only and raises for any other; the choice
 between a kernel and its plain version (``kernels/ref.py``) is made in
@@ -111,5 +111,5 @@ def gather_rerank(
             q, n, d, p, k, _METRIC[metric], _stream(queries),
         )
     _build.check(lib, rc, "gather_rerank")
-    _build.count_launch("gather_rerank")
+    _build.count_launch("gather_rerank", shape=(p, k))
     return out_d, out_i

@@ -16,8 +16,18 @@ interpret mode.  Tolerances:
 
 The ``test_cuda_*`` cases launch the CUDA kernels and skip (inside the
 ``cuda`` fixture) where there is no card; on the card select them with
-``-k cuda``.  ``chip_smoke.py`` runs the same comparisons at the main-path
-shapes.
+``-k cuda``.  The reference is imported inside the ``jx`` fixture, so the
+card-only cases run where JAX is not installed.  ``chip_smoke.py`` runs
+the same comparisons at the main-path shapes.
+
+The edge inputs of the redesigned ``gather_rerank`` and ``kmeans_assign``
+(pool sizes around one warp's sort and past it, k of 1, P and P + 5,
+sentinel rows, tied slots, -0.0 under ip; a winning centroid duplicated
+at indices that different lanes scan, ragged K, N and D) run twice: here
+through the plain versions against the reference, at the tolerances
+above, and on the card through the kernels against the plain versions.
+Where the inputs are small integers every sum is exact, and the card
+holds the kernels to the plain versions' bits.
 """
 
 import os
@@ -29,10 +39,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jnp = pytest.importorskip("jax.numpy")
 
-from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import rerank as trerank  # noqa: E402
 from repro_torch.kernels.kmeans_assign import kmeans_assign as kmeans_kernel  # noqa: E402
@@ -50,6 +57,17 @@ def _expanded_atol(q, x):
     return 1e-5 * (float(np.max(np.sum(q * q, 1))) + float(np.max(np.sum(x * x, 1))))
 
 
+@pytest.fixture(scope="module")
+def jx():
+    """(jax.numpy, repro.kernels.ops, repro.kernels.ref), or a skip where
+    JAX is absent."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    return jnp, jops, jref
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -62,7 +80,8 @@ def cuda():
 
 @pytest.mark.parametrize("q,n,d", [(1, 1, 1), (5, 37, 16), (17, 130, 24)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_exact_distances_match_reference(q, n, d, metric):
+def test_exact_distances_match_reference(jx, q, n, d, metric):
+    jnp, jops, jref = jx
     Q, X = _np(q, d, 1), _np(n, d, 2)
     fn = jref.l2_distances if metric == "l2" else jref.ip_distances
     want = np.asarray(fn(jnp.asarray(Q), jnp.asarray(X)))
@@ -70,7 +89,8 @@ def test_exact_distances_match_reference(q, n, d, metric):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=_expanded_atol(Q, X))
 
 
-def test_exact_topk_matches_reference():
+def test_exact_topk_matches_reference(jx):
+    jnp, jops, jref = jx
     Q, X = _np(6, 16, 3), _np(200, 16, 4)
     wd, wi = jops.exact_topk(jnp.asarray(Q), jnp.asarray(X), 7, backend="ref")
     gd, gi = ops.exact_topk(_t(Q), _t(X), 7)
@@ -78,7 +98,8 @@ def test_exact_topk_matches_reference():
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=_expanded_atol(Q, X))
 
 
-def test_build_pq_luts_match_reference():
+def test_build_pq_luts_match_reference(jx):
+    jnp, jops, jref = jx
     Q = _np(5, 16, 5)
     book = _np(4 * 8, 4, 6).reshape(4, 8, 4)
     for metric in ("l2", "ip"):
@@ -88,7 +109,8 @@ def test_build_pq_luts_match_reference():
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (300, 16, 32), (257, 256, 4), (64, 3, 70)])
-def test_kmeans_assign_matches_reference(n, k, d):
+def test_kmeans_assign_matches_reference(jx, n, k, d):
+    jnp, jops, jref = jx
     X, C = _np(n, d, n), _np(k, d, k + 1)
     wi, wd = jref.kmeans_assign(jnp.asarray(X), jnp.asarray(C))
     gi, gd = ops.kmeans_assign(_t(X), _t(C))
@@ -125,7 +147,8 @@ def _assert_rerank_equal(got, want, rtol, atol):
 
 @pytest.mark.parametrize("q,n,p,d", [(1, 1, 1, 1), (3, 90, 7, 16), (9, 300, 33, 24), (5, 130, 130, 100)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_gather_rerank_matches_reference(q, n, p, d, metric):
+def test_gather_rerank_matches_reference(jx, q, n, p, d, metric):
+    jnp, jops, jref = jx
     Q, X = _np(q, d, q), _np(n, d, n + 1)
     pids = _pool(q, n, p, q * 11 + n)
     k = min(5, p)
@@ -136,7 +159,8 @@ def test_gather_rerank_matches_reference(q, n, p, d, metric):
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_gather_rerank_matches_pallas_interpret(metric):
+def test_gather_rerank_matches_pallas_interpret(jx, metric):
+    jnp, jops, jref = jx
     Q, X = _np(6, 32, 1), _np(200, 32, 2)
     pids = _pool(6, 200, 24, 42)
     pids[2, 5:] = -1  # one mostly-empty pool
@@ -164,7 +188,8 @@ def _edge_pools():
 
 @pytest.mark.parametrize("case", _edge_pools(), ids=lambda c: c[0])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_gather_rerank_edge_cases(case, metric):
+def test_gather_rerank_edge_cases(jx, case, metric):
+    jnp, jops, jref = jx
     _, Q, X, pids, k = case
     want = jops.gather_rerank(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(pids), k,
                               metric=metric, backend="ref")
@@ -174,6 +199,88 @@ def test_gather_rerank_edge_cases(case, metric):
     assert gd.shape == (Q.shape[0], k)
     assert ((gi == -1) == np.isinf(gd)).all()
     assert (np.diff(np.where(np.isinf(gd), 1e30, gd), axis=1) >= 0).all()
+
+
+# -- edge inputs of the redesigned kernels: plain versions vs reference -------
+
+def _ints(shape, rng, lo=-3, hi=4):
+    return rng.integers(lo, hi, size=shape).astype(np.float32)
+
+
+def _rerank_edges():
+    """(name, Q, X, pids, k, exact): pool sizes around one warp's sort
+    (32 M keys, M <= 16) and past it, k of 1, P and P + 5, a sentinel row,
+    tied slots and -0.0 under ip; ``exact`` where every sum is exact."""
+    rng = np.random.default_rng(16)
+    out = []
+    for name, n, p, k in [("k1", 300, 40, 1), ("k_eq_p", 300, 40, 40), ("k_p_plus_5", 300, 40, 45),
+                          ("p1", 50, 1, 3), ("p255", 1000, 255, 40), ("p256", 1000, 256, 40),
+                          ("p257", 1000, 257, 40), ("p600", 2000, 600, 40), ("p600_k605", 2000, 600, 605)]:
+        pids = _pool(4, n, p, p + k)
+        pids[1, ::7] = -1  # sentinels between live slots
+        out.append((name, _np(4, 24, p), _np(n, 24, n), pids, k, False))
+    pids = _pool(3, 200, 50, 5)
+    pids[1] = -1  # a row with no live slot
+    pids[2, 10:] = 200  # ids >= N
+    out.append(("sentinel_row", _np(3, 16, 6), _np(200, 16, 7), pids, 20, False))
+    # one row id at two slots, and two equal rows at slots 2 and 5 (the
+    # higher id first): a tie keeps the lower slot first
+    X = _ints((30, 8), rng)
+    X[17] = X[4]
+    pids = rng.permutation(30)[:12].astype(np.int32)[None].repeat(2, 0)
+    pids[:, 2], pids[:, 5], pids[:, 8], pids[:, 9] = 17, 4, 11, 11
+    out.append(("tied_slots", _ints((2, 8), rng), X, pids, 12, True))
+    # zero cross products: ip scores -0.0, tied by slot
+    X = _ints((40, 8), rng)
+    Q = np.zeros((2, 8), np.float32)
+    Q[:, 0] = [1, -2]
+    X[::3, 0] = 0
+    out.append(("neg_zero_ip", Q, X, rng.permutation(40)[:30].astype(np.int32)[None].repeat(2, 0), 30, True))
+    return out
+
+
+def _kmeans_edges():
+    """(name, X, C, exact): a winning centroid duplicated at indices that
+    different lanes (D < 64), butterfly batches or shared-memory tiles
+    (D >= 64; a tile holds 95 centroids at D = 128) scan, ragged K, N past
+    a block's points, D on both sides of 64."""
+    rng = np.random.default_rng(17)
+    out = []
+    for d, k, i, j in [(4, 256, 3, 200), (128, 16, 3, 12), (128, 40, 3, 35), (128, 128, 3, 100),
+                       (128, 300, 90, 290)]:
+        C = _ints((k, d), rng, -20, 21)
+        C[j] = C[i]
+        X = (C[i] + _ints((333, d), rng, -1, 2)).astype(np.float32)
+        out.append((f"dup_winner_d{d}_k{k}", X, C, True))
+    for k in (1, 7, 255, 256, 257):
+        out.append((f"d4_k{k}", _np(1001, 4, k), _np(k, 4, k + 1), False))
+    for d in (1, 4, 5, 33, 64, 128, 130):
+        out.append((f"d{d}_k19", _np(777, d, d), _np(19, d, d + 1), False))
+    for k in (96, 128, 300):  # several tiles, the last one ragged
+        out.append((f"d128_k{k}", _np(1001, 128, k), _np(k, 128, k + 1), False))
+    out.append(("ints_d33_k300", _ints((500, 33), rng), _ints((300, 33), rng), True))
+    return out
+
+
+@pytest.mark.parametrize("case", _rerank_edges(), ids=lambda c: c[0])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_rerank_redesign_edges_match_reference(jx, case, metric):
+    jnp, jops, _ = jx
+    _, Q, X, pids, k, _exact = case
+    want = jops.gather_rerank(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(pids), k,
+                              metric=metric, backend="ref")
+    got = ops.gather_rerank(_t(Q), _t(X), _t(pids), k, metric=metric)
+    _assert_rerank_equal(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", _kmeans_edges(), ids=lambda c: c[0])
+def test_kmeans_assign_redesign_edges_match_reference(jx, case):
+    jnp, _, jref = jx
+    _, X, C, _exact = case
+    wi, wd = jref.kmeans_assign(jnp.asarray(X), jnp.asarray(C))
+    gi, gd = ops.kmeans_assign(_t(X), _t(C))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=_expanded_atol(X, C))
 
 
 # -- wrapper contract ----------------------------------------------------------
@@ -228,6 +335,15 @@ def test_import_builds_nothing():
     assert out.stdout.strip() == "True"
 
 
+def test_lib_path_covers_included_headers(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "k.cuh"\n')
+    before = _build._lib_path("k")
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    assert _build._lib_path("k") != before
+
+
 def test_every_source_has_a_kernel_note():
     for name in _build.sources():
         text = (_build.CSRC / f"{name}.cu").read_text()
@@ -267,3 +383,43 @@ def test_cuda_kmeans_assign_matches_plain(cuda, n, k, d):
     torch.cuda.synchronize()
     assert (gi == wi).float().mean().item() > 0.999
     torch.testing.assert_close(gd, wd, rtol=1e-5, atol=_expanded_atol(X.cpu().numpy(), C.cpu().numpy()))
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", _rerank_edges(), ids=lambda c: c[0])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_gather_rerank_redesign_edges(cuda, case, metric):
+    _, Q, X, pids, k, exact = case
+    args = (_t(Q).to(cuda), _t(X).to(cuda), _t(pids).to(cuda), k)
+    got = ops.gather_rerank(*args, metric=metric)
+    want = ops.gather_rerank(*args, metric=metric, backend="ref")
+    torch.cuda.synchronize()
+    if exact:
+        _assert_bits(got, want)
+    else:
+        _assert_rerank_equal([a.cpu() for a in got], [a.cpu() for a in want], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", _kmeans_edges(), ids=lambda c: c[0])
+def test_cuda_kmeans_assign_redesign_edges(cuda, case):
+    _, X, C, exact = case
+    gi, gd = ops.kmeans_assign(_t(X).to(cuda), _t(C).to(cuda))
+    wi, wd = ops.kmeans_assign(_t(X).to(cuda), _t(C).to(cuda), backend="ref")
+    torch.cuda.synchronize()
+    if exact:
+        _assert_bits((gi, gd), (wi, wd))
+        return
+    atol = _expanded_atol(X, C)
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=atol)
+    # assignments equal wherever the plain best-vs-second margin exceeds atol
+    full = ops.exact_distances(_t(X), _t(C), backend="ref")
+    two = torch.topk(full, min(2, C.shape[0]), dim=1, largest=False).values
+    margin = two[:, 1] - two[:, 0] if C.shape[0] > 1 else torch.full_like(two[:, 0], float("inf"))
+    assert not bool(((gi.cpu() != wi.cpu()) & (margin > atol)).any())
