@@ -62,17 +62,21 @@ dedup'd plane, stored against fresh quantization) and the dense
 ``pq_scan`` (bit for bit) against their plain versions, and times each
 exact scan (f32, bf16, int8) at k = 1, 40 and 160 and under an all-zero
 mask (the k sweep: k = 1 is about the scoring, the growth in k the
-select).  It times ``gather_rerank`` at search_pq's pool and at the
-quantized scan's guard, and ``kmeans_assign`` at shard ownership and at
-PQ encoding.  ``--parent DIR`` then holds ``masked_topk.cu``,
-``rerank.cu`` (``gather_rerank``) and ``kmeans_assign.cu`` of the
-checkout ``DIR`` against this one's (equal bits on every launch name,
-times in turns); ``--only-kernels`` stops after phase 2 without the
-result lines.
+select).  It times ``rerank_distances`` at Stage B (the small tile) and
+at the ground-truth chunk (the large tile), ``gather_rerank`` at
+search_pq's pool and at the quantized scan's guard, and ``kmeans_assign``
+at shard ownership and at PQ encoding.  ``--parent DIR`` then holds
+``masked_topk.cu``, ``rerank.cu``, ``kmeans_assign.cu`` and ``pq_scan.cu``
+of the checkout ``DIR`` against this one's (equal bits on every launch
+name, times in turns), and, without ``--only-kernels``, every
+``gather_rerank``, ``kmeans_assign`` and ``rerank_distances`` call of
+phases 3-8 too; ``--only-kernels`` stops after phase 2 without the result
+lines.
 
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
 them after (``kmeans_assign`` also by (D, K), ``gather_rerank`` by
-(P, k)); each kernel but ``pq_scan`` must have run on these paths
+(P, k), ``rerank_distances`` by tile; phase 3 counts its ground truth);
+each kernel but ``pq_scan`` must have run on these paths
 (``pq_scan`` has no production caller, in this package or the reference,
 so phase 2 alone holds it).  The line before the last is the ``kernels``
 JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -286,6 +290,9 @@ def _scale(*ts) -> float:
 
 
 def check_rerank_distances(torch, ops, dev, q, x, metric):
+    from repro_torch.kernels.rerank import tile_class
+
+    CHECKED["rerank_distances"].add(tile_class(q.shape[0], x.shape[0], q.shape[1]))
     got = ops.exact_distances(q, x, metric=metric)
     want = ops.exact_distances(q, x, metric=metric, backend="ref")
     torch.cuda.synchronize()
@@ -294,10 +301,11 @@ def check_rerank_distances(torch, ops, dev, q, x, metric):
 
 
 # the shapes phase 2 held against the plain version: gather_rerank by
-# (P, k), kmeans_assign by (D, K); every shape phases 3-8 launch must be here
-CHECKED: dict = {"gather_rerank": set(), "kmeans_assign": set()}
-# graph-replay times of rows 1-3, beside their host-inclusive ms, plain_ms
-# and library_ms
+# (P, k), kmeans_assign by (D, K), rerank_distances by tile; every shape
+# phases 3-8 launch must be here
+CHECKED: dict = {"gather_rerank": set(), "kmeans_assign": set(), "rerank_distances": set()}
+# graph-replay times of rows 1-3 and 10, beside their host-inclusive ms,
+# plain_ms and library_ms
 DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
 
 
@@ -355,37 +363,55 @@ def phase_kernels(torch, dev, shard_n: int, seed: int):
     rows = {}
 
     # ---- rerank_distances: Stage B (100 queries x the union of 4 shards x
-    # k*oversample = 40 candidates), plus the ground-truth chunk shape
+    # k*oversample = 40 candidates; the small tile), the ground-truth chunk
+    # (1,000 queries x the 1M rows; the large tile), and the tiles' edges
     q, x = t(rng.normal(size=(100, 128))), t(rng.normal(size=(4000, 128)))
     err = check_rerank_distances(torch, ops, dev, q, x, "l2")
     for args in [((7, 33), (1000, 33), "l2"), ((1, 1), (1, 1), "ip"), ((65, 130), (129, 130), "ip"),
-                 ((100, 128), (4000, 128), "ip")]:
+                 ((100, 128), (4000, 128), "ip"), ((300, 33), (20000, 33), "l2"),
+                 ((33, 300), (5000, 300), "l2"), ((600, 33), (20000, 33), "l2"),
+                 ((300, 130), (70000, 130), "ip")]:
         (qs, xs, metric) = args
         check_rerank_distances(torch, ops, dev, t(rng.normal(size=qs)), t(rng.normal(size=xs)), metric)
-    def timings(kernel, plain, lib):
+    def timings(kernel, plain, lib, slow=False):
         """Rows 1-3 are microsecond kernels.  ms, plain_ms and library_ms
         are host-inclusive (time_ms), as in every other row; the *device_ms
-        twins are graph replay (device_ms), without the host's dispatch."""
+        twins are graph replay (device_ms), without the host's dispatch.
+        ``slow``: calls of milliseconds that write gigabytes, timed fewer
+        times, one call a graph."""
+        if slow:
+            return dict(ms=time_ms(torch, kernel, reps=5, warmup=1),
+                        plain_ms=time_ms(torch, plain, reps=5, warmup=1),
+                        library_ms=time_ms(torch, lib, reps=5, warmup=1),
+                        device_ms=device_ms(torch, kernel, inner=1, reps=5),
+                        plain_device_ms=device_ms(torch, plain, inner=1, reps=3),
+                        library_device_ms=device_ms(torch, lib, inner=1, reps=3))
         return dict(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
                     library_ms=time_ms(torch, lib), device_ms=device_ms(torch, kernel),
                     plain_device_ms=device_ms(torch, plain), library_device_ms=device_ms(torch, lib))
 
-    def lib():
-        q2 = (q * q).sum(1, keepdim=True)
-        x2 = (x * x).sum(1)[None, :]
-        return torch.addmm(q2 + x2, q, x.T, alpha=-2.0)
+    def rerank_row(q, x, err, slow=False):
+        from repro_torch.kernels.rerank import tile_class
 
-    times = timings(lambda: ops.exact_distances(q, x), lambda: ops.exact_distances(q, x, backend="ref"), lib)
-    b, by = bound_ms(2 * 100 * 4000 * 128, 4 * (100 + 4000) * 128 + 4 * 100 * 4000)
-    rows["rerank_distances"] = dict(max_abs_err=err, **times, bound_ms=b, bound_by=by,
-                                    shape="Q=100 N=4000 D=128 l2")
+        (nq, d), n = q.shape, x.shape[0]
+
+        def lib():
+            q2 = (q * q).sum(1, keepdim=True)
+            x2 = (x * x).sum(1)[None, :]
+            return torch.addmm(q2 + x2, q, x.T, alpha=-2.0)
+
+        times = timings(lambda: ops.exact_distances(q, x), lambda: ops.exact_distances(q, x, backend="ref"),
+                        lib, slow=slow)
+        b, by = bound_ms(2 * nq * n * d, 4 * (nq + n) * d + 4 * nq * n)
+        tile = tile_class(nq, n, d)
+        return dict(max_abs_err=err, **times, bound_ms=b, bound_by=by,
+                    shape=f"Q={nq} N={n} D={d} l2, {tile[0]} tile", launch_shape=tile)
+
+    main = rerank_row(q, x, err)
     gq, gx = t(rng.normal(size=(1000, 128))), t(rng.normal(size=(shard_n * 4, 128)))
-    check_rerank_distances(torch, ops, dev, gq[:50], gx, "l2")
-    g_ms = time_ms(torch, lambda: ops.exact_distances(gq, gx), reps=5, warmup=1)
-    g_plain = time_ms(torch, lambda: ops.exact_distances(gq, gx, backend="ref"), reps=5, warmup=1)
-    gb, gby = bound_ms(2 * 1000 * gx.shape[0] * 128, 4 * (1000 + gx.shape[0]) * 128 + 4 * 1000 * gx.shape[0])
-    log(f"rerank_distances ground-truth chunk Q=1000 N={gx.shape[0]} D=128: kernel {g_ms:.3f} ms, "
-        f"plain {g_plain:.3f} ms, bound {gb:.3f} ms ({gby})")
+    g_err = check_rerank_distances(torch, ops, dev, gq, gx, "l2")
+    check_rerank_distances(torch, ops, dev, gq[:50], gx, "ip")
+    rows["rerank_distances"] = dict(main, shapes=[main, rerank_row(gq, gx, g_err, slow=True)])
     del gq, gx
 
     # ---- gather_rerank: search_pq's call, Q = 64 (batch padding), P = L +
@@ -848,17 +874,31 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
                               bound_ms=b, bound_by=by, shape=shape)
 
     lg = codes.T.long()[None].expand(Q, M, shard_n)
-    ms = time_ms(torch, lambda: ops.pq_scan(luts, codes))
-    plain = time_ms(torch, lambda: ops.pq_scan(luts, codes, backend="ref"), reps=5, warmup=1)
-    lib_ms = time_ms(torch, lambda: torch.gather(luts, 2, lg).sum(1), reps=5, warmup=1)
+
+    def kernel():
+        return ops.pq_scan(luts, codes)
+
+    def plain():
+        return ops.pq_scan(luts, codes, backend="ref")
+
+    def yard():
+        return torch.gather(luts, 2, lg).sum(1)
+
     b, by = bound_ms(Q * shard_n * M, 4 * Q * shard_n + M * shard_n + 4 * Q * M * KC)
-    rows["pq_scan"] = dict(max_abs_err=pq_err, ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b,
-                           bound_by=by, shape=f"Q=100 N={shard_n} m=32 K=256, (Q, N) out")
+    rows["pq_scan"] = dict(
+        max_abs_err=pq_err, ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain, reps=5, warmup=1),
+        library_ms=time_ms(torch, yard, reps=5, warmup=1), device_ms=device_ms(torch, kernel),
+        plain_device_ms=device_ms(torch, plain, inner=2, reps=5),
+        library_device_ms=device_ms(torch, yard, inner=2, reps=5),
+        bound_ms=b, bound_by=by, shape=f"Q=100 N={shard_n} m=32 K=256, (Q, N) out")
     del lg
     for name, r in rows.items():
         lib_s = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        dev_s = "" if "device_ms" not in r else (
+            f"; on the device (graph replay) kernel {r['device_ms']:.4f} ms, plain "
+            f"{r['plain_device_ms']:.4f} ms, library {r['library_device_ms']:.4f} ms")
         log(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {lib_s}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
+            f"library {lib_s}{dev_s}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
             f"{r['max_abs_err']:.3g} (over every check of phase 2: {errs.get(name, 0.0):.3g})")
     return rows
 
@@ -868,7 +908,7 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
 # every launch name of csrc/masked_topk.cu
 MASKED_NAMES = tuple(n for n, (src, _) in KERNELS.items() if src == MASKED_CU)
 # the sources --parent builds from the other checkout
-PARENT_SOURCES = ("masked_topk", "kmeans_assign", "rerank")
+PARENT_SOURCES = ("masked_topk", "kmeans_assign", "rerank", "pq_scan")
 
 
 def _parent_libs(parent: str) -> dict:
@@ -895,6 +935,10 @@ def _parent_libs(parent: str) -> dict:
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        if name == "rerank" and not hasattr(lib, "rerank_tile"):
+            # a rerank.cu from before the two tiles: its launches are
+            # labelled by this checkout's tile rule
+            lib.rerank_tile = _build.load("rerank").rerank_tile
         libs[name] = lib
     return libs
 
@@ -1026,15 +1070,82 @@ def _parent_rerank_kmeans(torch, dev, shard_n: int, seed: int, libs: dict, old: 
             f"change/parent {b / a:.3f} (device); with the host's dispatch {ha:.4f} / {hb:.4f} ms")
 
 
+# rerank_distances shapes held against the parent: Stage B and the tiles'
+# ragged edges (small tile), and ragged Q / N / D, D > 256 and one query
+# against many rows (large tile); (Q, N, D)
+PARENT_RERANK = [(100, 4000, 128), (1, 1, 1), (1, 1, 128), (7, 1000, 33), (33, 130, 70),
+                 (65, 257, 130), (1, 129, 33), (300, 20000, 33), (33, 5000, 300),
+                 (257, 40001, 70), (600, 20000, 33), (300, 70000, 130), (1, 300000, 1),
+                 (2200, 4000, 128)]
+# pq_scan shapes held against the parent: (Q, N, m, K)
+PARENT_PQ = [(5, 700, 8, 256), (1, 1, 4, 16), (9, 2049, 3, 7), (3, 4097, 32, 256),
+             (7, 5000, 16, 256), (7, 5000, 64, 256), (100, 1023, 32, 256), (100, 1025, 32, 256),
+             (100, 2047, 32, 256), (100, 2049, 32, 256)]
+
+
+def _parent_rerank_pq(torch, dev, shard_n: int, seed: int, libs: dict, old: dict) -> None:
+    """rerank_distances (csrc/rerank.cu) and pq_scan (csrc/pq_scan.cu) of
+    the parent against this checkout's: equal bits on seeded inputs (the
+    main path's shapes, both metrics, and the edges), then Stage B, the
+    ground-truth chunk and the phase-2 pq_scan call timed in turns."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed + 6)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def codes_of(n, m, kc):
+        return torch.as_tensor(rng.integers(0, kc, size=(n, m)).astype(np.uint8)).to(dev)
+
+    data = {}
+    calls = []
+    for shape in PARENT_RERANK + [(1000, shard_n * 4, 128)]:
+        nq, n, d = shape
+        q, x = t(rng.normal(size=(nq, d))), t(rng.normal(size=(n, d)))
+        data[shape] = (q, x)
+        for metric in ("l2", "ip"):
+            calls.append((f"Q={nq} N={n} D={d} {metric}",
+                          lambda q=q, x=x, m=metric: (ops.exact_distances(q, x, metric=m),)))
+    _same_bits(torch, "rerank", old["rerank"], libs["rerank"], calls, "rerank_distances")
+    del calls
+
+    pcalls = []
+    for nq, n, m, kc in PARENT_PQ + [(100, shard_n, 32, 256)]:
+        luts, codes = torch.rand((nq, m, kc), device=dev), codes_of(n, m, kc)
+        data[(nq, n, m, kc)] = (luts, codes)
+        pcalls.append((f"Q={nq} N={n} m={m} K={kc}", lambda lt=luts, c=codes: (ops.pq_scan(lt, c),)))
+    _same_bits(torch, "pq_scan", old["pq_scan"], libs["pq_scan"], pcalls, "pq_scan")
+
+    sq, sx = data[(100, 4000, 128)]
+    gq, gx = data[(1000, shard_n * 4, 128)]
+    luts, codes = data[(100, shard_n, 32, 256)]
+    # (name, source, shape, call, a 4 GB output timed fewer times)
+    timed = [("rerank_distances", "rerank", "Q=100 N=4000 D=128 (Stage B)",
+              lambda: ops.exact_distances(sq, sx), False),
+             ("rerank_distances", "rerank", f"Q=1000 N={gx.shape[0]} D=128 (ground truth)",
+              lambda: ops.exact_distances(gq, gx), True),
+             ("pq_scan", "pq_scan", f"Q=100 N={shard_n} m=32 K=256",
+              lambda: ops.pq_scan(luts, codes), False)]
+    for name, src, shape, fn, big in timed:
+        a, b = _turns(torch, src, old[src], libs[src], fn, timer=lambda torch, fn: device_ms(
+            torch, fn, inner=1 if big else 20, reps=5 if big else 15))
+        ha, hb = _turns(torch, src, old[src], libs[src], fn, timer=lambda torch, fn: time_ms(
+            torch, fn, reps=5 if big else 30, warmup=1))
+        log(f"parent vs change {name} [{shape}]: parent {a:.4f} ms, change {b:.4f} ms, "
+            f"change/parent {b / a:.3f} (device); with the host's dispatch {ha:.4f} / {hb:.4f} ms")
+
+
 def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     """``--parent DIR``: this checkout's kernels of ``masked_topk.cu``,
-    ``rerank.cu`` (``gather_rerank``) and ``kmeans_assign.cu`` against those
-    of ``DIR`` (an earlier commit's tree).  Every launch name of
+    ``rerank.cu``, ``kmeans_assign.cu`` and ``pq_scan.cu`` against those of
+    ``DIR`` (an earlier commit's tree).  Every launch name of
     ``masked_topk.cu`` on seeded phase-2 inputs (N = 4,096 and one shard;
     both metrics, the 50 % row mask and the dedup'd plane of ten price
     masks, k = 40 and 160) gives the same distance bits and ids from both
     builds, and so do ``gather_rerank`` and ``kmeans_assign`` (see
-    ``_parent_rerank_kmeans``); then the phase-2 timed calls and the k
+    ``_parent_rerank_kmeans``), ``rerank_distances`` and ``pq_scan`` (see
+    ``_parent_rerank_pq``); then the phase-2 timed calls and the k
     sweeps, timed in turns (parent, change, change, parent) on this card.
     Returns the parent's libraries by source name."""
     from repro_torch.kernels import _build, ops, ref
@@ -1042,6 +1153,7 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     old_libs = _parent_libs(parent)
     libs = {name: _build.load(name) for name in PARENT_SOURCES}
     _parent_rerank_kmeans(torch, dev, shard_n, seed, libs, old_libs)
+    _parent_rerank_pq(torch, dev, shard_n, seed, libs, old_libs)
     new, old = libs["masked_topk"], old_libs["masked_topk"]
     rng = np.random.default_rng(seed + 4)
     Q, D, M, KC = 100, 128, 32, 256
@@ -1120,7 +1232,8 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
 
 def _shadow_main_path(torch, old_libs: dict) -> dict:
     """``--parent DIR`` with the main path: from here on every
-    ``gather_rerank`` and ``kmeans_assign`` call on a CUDA tensor also runs
+    ``gather_rerank``, ``kmeans_assign`` and ``exact_distances``
+    (``rerank_distances``) call on a CUDA tensor also runs
     the parent's build of its source, on the same inputs and thread and
     uncounted, and the two outputs are compared bit for bit.  Returns the
     tally {name: [calls, calls whose bits differ]}, filled as phases 3-8
@@ -1150,14 +1263,16 @@ def _shadow_main_path(torch, old_libs: dict) -> dict:
     def wrap(name, src, fn):
         def call(*a, **kw):
             out = fn(*a, **kw)
-            if kw.get("backend", "auto") == "ref" or not out[0].is_cuda:
+            outs = out if isinstance(out, tuple) else (out,)
+            if kw.get("backend", "auto") == "ref" or not outs[0].is_cuda:
                 return out
             local.libs = {src: old_libs[src]}
             try:
                 old = fn(*a, **kw)
             finally:
                 local.libs = None
-            same = all(torch.equal(bits(u), bits(v)) for u, v in zip(out, old))
+            olds = old if isinstance(old, tuple) else (old,)
+            same = all(torch.equal(bits(u), bits(v)) for u, v in zip(outs, olds))
             with lock:
                 t = tally.setdefault(name, [0, 0])
                 t[0] += 1
@@ -1167,6 +1282,7 @@ def _shadow_main_path(torch, old_libs: dict) -> dict:
 
     ops.gather_rerank = wrap("gather_rerank", "rerank", ops.gather_rerank)
     ops.kmeans_assign = wrap("kmeans_assign", "kmeans_assign", ops.kmeans_assign)
+    ops.exact_distances = wrap("rerank_distances", "rerank", ops.exact_distances)
     return tally
 
 
@@ -1274,14 +1390,19 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
     # recall@10 against brute force (the rerank_distances kernel, 1,000
-    # queries a chunk); hits map back to row indices through the file layout
+    # queries a chunk, counted with phase 3's launches); hits map back to
+    # row indices through the file layout
     got = hit_rows(table, hits, rows_per_group)
     truth_d = np.empty((len(hits), 10), np.float32)
     truth = np.empty((len(hits), 10), np.int64)
+    _build.reset_launch_counts()
     t0 = time.time()
     for s in range(0, len(hits), 1000):
         truth_d[s : s + 1000], truth[s : s + 1000] = brute_force_topk(X, Q[s : s + 1000], 10)
+    torch.cuda.synchronize()
     gt_s = time.time() - t0
+    _add(launches, {k: v for k, v in _build.launch_counts().items() if k in MAIN_KERNELS})
+    _add_shapes("3", _build.launch_shapes())
     recall = float(np.mean([len(set(g) & set(t)) / 10 for g, t in zip(got, truth)]))
     # each returned distance is the exact one: check against a recomputation
     exact = np.sum((X[got[:200]] - Q[:200, None, :]) ** 2, axis=-1)
@@ -1782,10 +1903,11 @@ def main() -> int:
     ap.add_argument("--small-n", type=int, default=131_072,
                     help="rows of the small-shard catalog of phase 6")
     ap.add_argument("--parent", metavar="DIR",
-                    help="after phase 2, hold masked_topk.cu, rerank.cu and kmeans_assign.cu of "
-                         "the checkout DIR (an earlier commit's tree) against this one's: equal "
-                         "bits, times in turns; without --only-kernels, also every gather_rerank "
-                         "and kmeans_assign call of phases 3-8, bit for bit")
+                    help="after phase 2, hold masked_topk.cu, rerank.cu, kmeans_assign.cu and "
+                         "pq_scan.cu of the checkout DIR (an earlier commit's tree) against this "
+                         "one's: equal bits, times in turns; without --only-kernels, also every "
+                         "gather_rerank, kmeans_assign and rerank_distances call of phases 3-8, "
+                         "bit for bit")
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after phase 2 (and --parent), without the result lines")
     args = ap.parse_args()
@@ -1843,10 +1965,12 @@ def main() -> int:
     if shadow is not None:
         log(f"parent vs change on phases 3-8, every call also run on the parent's build: "
             f"{ {name: f'{n} calls, {bad} with other bits' for name, (n, bad) in shadow.items()} }")
-        if sorted(shadow) != ["gather_rerank", "kmeans_assign"] or any(bad for _n, bad in shadow.values()):
+        if sorted(shadow) != ["gather_rerank", "kmeans_assign", "rerank_distances"] or any(
+                bad for _n, bad in shadow.values()):
             raise AssertionError(f"--parent: the main path's outputs differ from the parent's build: {shadow}")
     log(f"launches by phase: {per_phase}")
-    log("launches by phase and shape (kmeans_assign by (D, K), gather_rerank by (P, k)): "
+    log("launches by phase and shape (kmeans_assign by (D, K), gather_rerank by (P, k), "
+        "rerank_distances by tile): "
         + "; ".join(f"phase {ph}: {by_kernel}" for ph, by_kernel in sorted(SHAPES.items())))
     log(f"phase seconds: { {k: round(v, 2) for k, v in phase_s.items()} }")
     for name, checked in CHECKED.items():

@@ -8,12 +8,34 @@
 // 4 (Q + N) D + 4 Q N bytes, so it is bound by the f32 SIMT rate
 // (67 TFLOP/s) until Q is small, where the (Q, N) output write dominates.
 // Design: the TPU schedule (one MXU matmul per tile) does not carry over,
-// and this first version stays off the tensor cores so the sums stay full
-// f32 (no TF32).  A 64x64 output tile per 256-thread block, D streamed in
-// chunks of 16 through shared memory, a 4x4 register block per thread; the
-// row norms are summed from the same shared-memory chunks, so q and x are
-// read from device memory once per tile.  Ragged Q, N and D are masked in
-// the loads and stores: the caller pads nothing.
+// and the sums stay off the tensor cores so they stay full f32 (no TF32).
+// Every output is the same chain whichever tile computes it: the cross
+// term and each row norm are fmaf chains over features 0 .. Dp - 1 from
+// +0.0, with Dp = D rounded up to 16 and zeros past D (the first version's
+// 16-feature chunks), and the epilogue is (q2 - 2 cross) + x2, or -cross.
+// - One kernel, two tiles: 128 x 128 outputs a block, 8 x 16 a thread
+//   (the ground truth, any call of four waves or more), and 64 x 64, 4 x 8
+//   a thread (Stage B: Q = 100, N = a few thousand), both 128 threads.
+//   The launcher picks by the large tile's grid; a call's rows get the same
+//   bits from either.
+// - D streams through a double-buffered ring of 16-feature chunks filled by
+//   16-byte cp.async copies whose source addresses are worked out once a
+//   block; the next chunk is in flight while the current one is multiplied.
+// - What bounds the loop is shared memory as much as the FMAs: a warp's
+//   128-bit shared load moves 512 bytes at 128 bytes a clock, so at 4 x 4
+//   outputs a thread (the first version's kernel) the loads cost twice
+//   the FMAs.  A row is staged k-contiguous with a stride of 20 floats, a
+//   thread owns
+//   rows ty + 16 i and columns tx + 8 j, and a quarter-warp reads one q
+//   row (a broadcast) and 8 x rows in 8 different bank quads: each
+//   LDS.128 feeds 4 TN or 4 TM FMAs.
+// - Blocks are numbered with the query tile fastest, so the blocks that
+//   share a point tile run together and the points leave device memory
+//   once.  Row norms are summed from the same staged chunks.
+// - Rows that are not 16-byte aligned (D % 4 != 0, or an offset base) take
+//   4-byte copies; ragged Q, N and D are zero-filled by the copies
+//   themselves (cp.async with a short source size), so the caller pads
+//   nothing and the bits do not change.
 //
 // gather_rerank replaces the TPU kernel gather_rerank_pallas
 // (src/repro/kernels/rerank.py, body _gather_rerank_kernel): the exact
@@ -55,78 +77,204 @@
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int RD_THREADS = 256;
+// cp.async copies of cp bytes, of which the first src are read and the
+// rest zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-__global__ void __launch_bounds__(RD_THREADS)
-rerank_distances_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                        float* __restrict__ out, int Q, int N, int D, int metric) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  __shared__ float q2s[BM];
-  __shared__ float x2s[BN];
+// Rows [row0, row0 + ROWS) x features [k0, k0 + K) of the (R, D)
+// row-major src into dst (row stride STRIDE floats) by 4-byte copies, for
+// rows that are not 16-byte aligned; rows >= R and features >= D become 0.
+template <int ROWS, int K, int STRIDE, int THREADS>
+__device__ __forceinline__ void copy_chunk4(float* dst, const float* __restrict__ src, int R,
+                                            int D, int row0, int k0, int tid) {
+#pragma unroll 4
+  for (int e = tid; e < ROWS * K; e += THREADS) {
+    const int r = e / K, c = e % K;
+    const bool ok = row0 + r < R && k0 + c < D;
+    cp_async4(dst + r * STRIDE + c, ok ? src + (size_t)(row0 + r) * D + k0 + c : src, ok ? 4 : 0);
+  }
+}
+
+// One thread's 16-byte copies into a ring stage (D % 4 == 0, aligned rows,
+// so a 4-feature group is all in or all out): rows tid / 4 + 32 i of a
+// tile of ROWS rows, features 4 (tid % 4) .. + 3 of each 16-feature chunk;
+// the source rows' addresses are worked out once, not per chunk.
+template <int ROWS, int STRIDE>
+struct ChunkCopies {
+  static constexpr int N = ROWS / 32;
+  const float* src[N];  // nullptr: the row is past R
+  int c;
+  __device__ __forceinline__ ChunkCopies(const float* base, int R, int D, int row0, int tid)
+      : c((tid & 3) * 4) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int row = row0 + (tid >> 2) + 32 * i;
+      src[i] = row < R ? base + (size_t)row * D + c : nullptr;
+    }
+  }
+  __device__ __forceinline__ void start(float* dst, int k0, int D, const float* any, int tid) const {
+    float* d = dst + (tid >> 2) * STRIDE + c;
+    const bool in_d = k0 + c < D;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool ok = in_d && src[i] != nullptr;
+      cp_async16(d + 32 * i * STRIDE, ok ? src[i] + k0 : any, ok ? 16 : 0);
+    }
+  }
+};
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float rd_out(float q2, float cross, float x2, int metric) {
+  return metric == 0 ? (q2 - 2.0f * cross) + x2 : -cross;
+}
+
+// A tile of 16 TM query rows x 8 TN point rows, 128 threads of TM x TN
+// outputs each: lane l of warp w owns rows ty + 16 i and columns tx + 8 j,
+// tx = l % 8, ty = l / 8 + 4 w.  A quarter-warp reads one q row (a
+// broadcast) and 8 consecutive x rows; with a row stride of 4 mod 8 floats
+// those 8 fall in 8 different bank quads.  Each float4 read from shared
+// memory feeds 4 TN (or 4 TM) FMAs: a warp's 128-bit load moves 512 bytes
+// at 128 bytes a clock, so at 4 x 4 a thread the loads, not the FMAs,
+// would set the pace.
+template <int TM, int TN>
+struct Tile {
+  static constexpr int BM = 16 * TM;
+  static constexpr int BN = 8 * TN;
+  static constexpr int THREADS = 128;
+  static constexpr int NORMS = (BM + BN) / THREADS;  // rows whose norm a thread sums
+  static_assert((BM + BN) % THREADS == 0, "norm rows split evenly");
+};
+constexpr int LT_TM = 8, LT_TN = 16;    // the large tile: 128 x 128
+constexpr int ST_TM = 4, ST_TN = 8;     // the small tile: 64 x 64
+constexpr int CHUNK = 16;               // features a chunk of the ring
+constexpr int ROW_STRIDE = CHUNK + 4;   // floats a staged row: 8 rows, 8 bank quads
+constexpr int LARGE_MIN = 4 * 132;      // the large tile from four waves of 132 SMs
+
+// acc += the products of the CHUNK features of one staged chunk (A rows,
+// then B rows, ROW_STRIDE floats apart), nrm += the squares of the rows this
+// thread sums (row t + 128 r of [A rows; B rows])
+template <int TM, int TN>
+__device__ __forceinline__ void multiply(const float* A, int tx, int ty, int tid,
+                                         float (&acc)[TM][TN], float (&nrm)[Tile<TM, TN>::NORMS]) {
+  using T = Tile<TM, TN>;
+  const float* B = A + T::BM * ROW_STRIDE;
+#pragma unroll
+  for (int c = 0; c < CHUNK; c += 4) {
+#pragma unroll
+    for (int r = 0; r < T::NORMS; ++r) {  // [A rows; B rows] are contiguous
+      const float4 v = *reinterpret_cast<const float4*>(A + (tid + T::THREADS * r) * ROW_STRIDE + c);
+      fma4(nrm[r], v, v);
+    }
+    float4 a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * ROW_STRIDE + c);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * ROW_STRIDE + c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) fma4(acc[i][j], a[i], b);
+    }
+  }
+}
+
+// norms to shared memory, then the (Q, N) outputs of the tile
+template <int TM, int TN>
+__device__ __forceinline__ void write_tile(float* q2s, float* x2s, const float (&acc)[TM][TN],
+                                           const float (&nrm)[Tile<TM, TN>::NORMS], float* out,
+                                           int Q, int N, int row0, int col0, int tx, int ty,
+                                           int tid, int metric) {
+  using T = Tile<TM, TN>;
+#pragma unroll
+  for (int r = 0; r < T::NORMS; ++r) {
+    const int row = tid + T::THREADS * r;
+    if (row < T::BM) q2s[row] = nrm[r];
+    else x2s[row - T::BM] = nrm[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= Q) continue;
+    const float q2 = q2s[ty + 16 * i];
+    float* orow = out + (size_t)r * N;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = col0 + tx + 8 * j;
+      if (c < N) orow[c] = rd_out(q2, acc[i][j], x2s[tx + 8 * j], metric);
+    }
+  }
+}
+
+// D streams through a double-buffered ring of CHUNK-feature chunks in
+// dynamic shared memory, the next chunk's cp.async copies in flight while
+// the current chunk is multiplied.  Blocks are numbered with the query tile
+// fastest.  MINB: blocks an SM, for the register budget.
+template <int TM, int TN, int MINB, bool VEC>
+__global__ void __launch_bounds__(128, MINB)
+rerank_kernel(const float* __restrict__ q, const float* __restrict__ x, float* __restrict__ out,
+              int Q, int N, int D, int metric, int q_tiles) {
+  using T = Tile<TM, TN>;
+  constexpr int STAGE = (T::BM + T::BN) * ROW_STRIDE;  // [A rows; B rows] a stage
+  extern __shared__ __align__(16) float sm[];
+  float* q2s = sm + 2 * STAGE;
+  float* x2s = q2s + T::BM;
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  const int tx = tid & 7, ty = (tid >> 3 & 3) + 4 * (tid >> 5);
+  const int row0 = (blockIdx.x % q_tiles) * T::BM;
+  const int col0 = (blockIdx.x / q_tiles) * T::BN;
+  const int chunks = (D + CHUNK - 1) / CHUNK;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float nrm = 0.f;  // threads [0, BM) sum q rows, [BM, BM + BN) sum x rows
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += RD_THREADS) {
-      const int m = i / BK, kk = i % BK;
-      const int gr = row0 + m, gk = k0 + kk;
-      As[kk][m] = (gr < Q && gk < D) ? q[(size_t)gr * D + gk] : 0.f;
-      const int gc = col0 + m;
-      Bs[kk][m] = (gc < N && gk < D) ? x[(size_t)gc * D + gk] : 0.f;
+  float nrm[T::NORMS];
+#pragma unroll
+  for (int r = 0; r < T::NORMS; ++r) nrm[r] = 0.f;
+  static_assert(CHUNK == 16 && T::THREADS == 128, "ChunkCopies: 4 threads a row, 32 rows a pass");
+  const ChunkCopies<T::BM, ROW_STRIDE> qc(q, Q, D, row0, tid);
+  const ChunkCopies<T::BN, ROW_STRIDE> xc(x, N, D, col0, tid);
+  auto stage = [&](int buf, int k0) {
+    float* A = sm + buf * STAGE;
+    if (VEC) {
+      qc.start(A, k0, D, q, tid);
+      xc.start(A + T::BM * ROW_STRIDE, k0, D, x, tid);
+    } else {
+      copy_chunk4<T::BM, CHUNK, ROW_STRIDE, T::THREADS>(A, q, Q, D, row0, k0, tid);
+      copy_chunk4<T::BN, CHUNK, ROW_STRIDE, T::THREADS>(A + T::BM * ROW_STRIDE, x, N, D, col0, k0, tid);
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int buf = kc & 1;
+    if (kc + 1 < chunks) {
+      stage(buf ^ 1, (kc + 1) * CHUNK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (tid < BM) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) nrm += As[kk][tid] * As[kk][tid];
-    } else if (tid < BM + BN) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) nrm += Bs[kk][tid - BM] * Bs[kk][tid - BM];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
-    }
+    multiply<TM, TN>(sm + buf * STAGE, tx, ty, tid, acc, nrm);
     __syncthreads();
   }
-  if (tid < BM) q2s[tid] = nrm;
-  else if (tid < BM + BN) x2s[tid - BM] = nrm;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= Q) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= N) continue;
-      const float cross = acc[i][j];
-      out[(size_t)r * N + c] = metric == 0
-          ? (q2s[ty * TM + i] - 2.0f * cross) + x2s[tx * TN + j]
-          : -cross;
-    }
-  }
+  write_tile<TM, TN>(q2s, x2s, acc, nrm, out, Q, N, row0, col0, tx, ty, tid, metric);
 }
 
 constexpr int GR_THREADS = 512;
@@ -281,6 +429,25 @@ gather_rerank_kernel(const float* __restrict__ q, const float* __restrict__ x,
     write_slot(e < P ? keys[e] : DEAD, e, row, pids, out_d, out_i, P, k);
 }
 
+template <int TM, int TN, int MINB>
+int launch_tile(bool vec, const float* q, const float* x, float* out, int Q, int N, int D,
+                int metric, cudaStream_t stream) {
+  using T = Tile<TM, TN>;
+  const int q_tiles = (Q + T::BM - 1) / T::BM;
+  const long long blocks = (long long)q_tiles * ((N + T::BN - 1) / T::BN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (2 * (T::BM + T::BN) * ROW_STRIDE + T::BM + T::BN) * sizeof(float);
+  auto kernel = vec ? rerank_kernel<TM, TN, MINB, true> : rerank_kernel<TM, TN, MINB, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<static_cast<unsigned>(blocks), T::THREADS, smem, stream>>>(q, x, out, Q, N, D, metric,
+                                                                      q_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -289,12 +456,21 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// 0: the small tile, 1: the large tile, for a (Q, N, D) call
+int rerank_tile(int Q, int N, int D) {
+  using L = Tile<LT_TM, LT_TN>;
+  const long long large = (long long)((Q + L::BM - 1) / L::BM) * ((N + L::BN - 1) / L::BN);
+  return large < LARGE_MIN ? 0 : 1;
+}
+
 int rerank_distances(const float* q, const float* x, float* out, int Q, int N,
                      int D, int metric, cudaStream_t stream) {
   if (Q <= 0 || N <= 0) return 0;
-  dim3 grid((N + BN - 1) / BN, (Q + BM - 1) / BM);
-  rerank_distances_kernel<<<grid, RD_THREADS, 0, stream>>>(q, x, out, Q, N, D, metric);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (rerank_tile(Q, N, D) == 1)
+    return launch_tile<LT_TM, LT_TN, 2>(vec, q, x, out, Q, N, D, metric, stream);
+  return launch_tile<ST_TM, ST_TN, 4>(vec, q, x, out, Q, N, D, metric, stream);
 }
 
 int gather_rerank(const float* q, const float* x, const int* pids, float* out_d,

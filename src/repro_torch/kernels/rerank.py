@@ -3,7 +3,10 @@ gather-rerank (CUDA sources in ``csrc/rerank.cu``).
 
 - :func:`rerank_distances` replaces ``rerank_distances_pallas``
   (``repro/kernels/rerank.py``): the (Q, N) matrix of |q|^2 - 2 q.x + |x|^2,
-  or -q.x.
+  or -q.x.  The kernel picks one of two tiles from the shape (both give
+  the same bits); its launches are counted by tile, ``("small",)`` (Stage
+  B's shape) or ``("large",)`` (the ground truth's), see
+  :func:`tile_class`.
 - :func:`gather_rerank` replaces ``gather_rerank_pallas``: exact distances
   from each query to its own P candidate ids, ascending top-k, (+inf, -1)
   for sentinel slots.  Its launches are counted by (P, k).
@@ -46,10 +49,21 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rerank_distances.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.rerank_distances.restype = ci
+        lib.rerank_tile.argtypes = [ci, ci, ci]
+        lib.rerank_tile.restype = ci
         lib.gather_rerank.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.gather_rerank.restype = ci
         lib._typed = True
     return lib
+
+
+TILES = ("small", "large")
+
+
+def tile_class(q: int, n: int, d: int) -> tuple:
+    """The launch shape under which a (Q, N, D) ``rerank_distances`` call is
+    counted: the tile the kernel's launcher takes for it."""
+    return (TILES[_lib().rerank_tile(q, n, d)],)
 
 
 def rerank_distances(
@@ -72,7 +86,7 @@ def rerank_distances(
             q, n, d, _METRIC[metric], _stream(queries),
         )
     _build.check(lib, rc, "rerank_distances")
-    _build.count_launch("rerank_distances")
+    _build.count_launch("rerank_distances", shape=tile_class(q, n, d))
     return out
 
 

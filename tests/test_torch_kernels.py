@@ -7,11 +7,12 @@ interpret mode.  Tolerances:
 
 - direct-form distances (``gather_rerank``): 1e-5 relative — both sides sum
   the same squared differences, only the summation order may differ;
-- expanded-form distances (``l2_distances``, ``kmeans_assign``): 1e-5 of
+- expanded-form distances (``exact_distances`` against the reference's
+  jnp oracle and its Pallas kernel, ``kmeans_assign``): 1e-5 of
   |q|^2 + |x|^2, the magnitude the form cancels from (torch and XLA run
   different matrix-product routines);
-- against the Pallas kernel, which scores through the expanded form: the
-  reference test suite's own rtol 2e-4 / atol 2e-3;
+- ``gather_rerank`` against the Pallas kernel, which scores through the
+  expanded form: the reference test suite's own rtol 2e-4 / atol 2e-3;
 - ids equal throughout (inputs are random, so no exact ties).
 
 The ``test_cuda_*`` cases launch the CUDA kernels and skip (inside the
@@ -78,13 +79,21 @@ def cuda():
 
 # -- plain versions vs repro.kernels.ref --------------------------------------
 
-@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (5, 37, 16), (17, 130, 24)])
+# (33, 130, 70), (1, 129, 33) and (65, 257, 130) cross the kernel tiles'
+# edges: ragged rows past 32 / 64 / 128, D past 16-feature chunks and
+# D % 4 != 0 (the 4-byte copy path)
+@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (5, 37, 16), (17, 130, 24), (33, 130, 70),
+                                   (1, 129, 33), (65, 257, 130)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_exact_distances_match_reference(jx, q, n, d, metric):
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+def test_exact_distances_match_reference(jx, q, n, d, metric, backend):
+    """Against the reference's jnp oracle and its Pallas kernel (interpret
+    mode); both compute the expanded form, so the expanded-form tolerance
+    holds for each."""
     jnp, jops, jref = jx
     Q, X = _np(q, d, 1), _np(n, d, 2)
-    fn = jref.l2_distances if metric == "l2" else jref.ip_distances
-    want = np.asarray(fn(jnp.asarray(Q), jnp.asarray(X)))
+    want = np.asarray(jops.exact_distances(jnp.asarray(Q), jnp.asarray(X), metric=metric,
+                                           backend=backend))
     got = ops.exact_distances(_t(Q), _t(X), metric=metric).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=_expanded_atol(Q, X))
 
@@ -353,7 +362,15 @@ def test_every_source_has_a_kernel_note():
 
 # -- the CUDA kernels against their plain versions (card only) ----------------
 
-@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (100, 4000, 128), (33, 1000, 70)])
+# the small tile (Stage B's shape, the tiles' ragged edges, D % 4 != 0,
+# D > 256 in two rounds) and the large one (ragged Q, N and D, D % 4 != 0,
+# one query against many points)
+RERANK_SHAPES = [(1, 1, 1), (100, 4000, 128), (33, 1000, 70), (33, 130, 70), (1, 129, 33),
+                 (65, 257, 130), (300, 20000, 33), (129, 30000, 130), (33, 5000, 300),
+                 (257, 40001, 68), (600, 20000, 33), (300, 70000, 130), (1, 300000, 4)]
+
+
+@pytest.mark.parametrize("q,n,d", RERANK_SHAPES)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_cuda_rerank_distances_matches_plain(cuda, q, n, d, metric):
     Q, X = _t(_np(q, d, 1)).to(cuda), _t(_np(n, d, 2)).to(cuda)
@@ -362,6 +379,59 @@ def test_cuda_rerank_distances_matches_plain(cuda, q, n, d, metric):
     torch.cuda.synchronize()
     atol = _expanded_atol(Q.cpu().numpy(), X.cpu().numpy())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_rerank_distances_large_matches_plain(cuda, metric):
+    """A ground-truth-sized call (Q = 1,000, N = 100,000) takes the large
+    tile and stays within the expanded form's tolerance of the plain version."""
+    Q, X = _t(_np(1000, 128, 5)).to(cuda), _t(_np(100_000, 128, 6)).to(cuda)
+    assert trerank.tile_class(1000, 100_000, 128) == ("large",)
+    got = ops.exact_distances(Q, X, metric=metric)
+    want = ops.exact_distances(Q, X, metric=metric, backend="ref")
+    torch.cuda.synchronize()
+    atol = _expanded_atol(Q.cpu().numpy(), X.cpu().numpy())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("d", [128, 33, 70, 1])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_rerank_distances_tiles_agree_bit_for_bit(cuda, d, metric):
+    """The rows of a Q = 100 call (the small tile) equal the same rows of a
+    call whose Q takes the large tile: both sum the same chains."""
+    Q, X = _t(_np(2200, d, 7)).to(cuda), _t(_np(4000, d, 8)).to(cuda)
+    assert trerank.tile_class(100, 4000, d) == ("small",)
+    assert trerank.tile_class(2200, 4000, d) == ("large",)
+    small = ops.exact_distances(Q[:100].contiguous(), X, metric=metric)
+    large = ops.exact_distances(Q, X, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(small.view(torch.int32), large[:100].view(torch.int32))
+
+
+@pytest.mark.parametrize("q,n", [(100, 4000), (1000, 20000)])
+def test_cuda_rerank_distances_unaligned_rows(cuda, q, n):
+    """Tensors whose data starts 4 bytes past a 16-byte boundary take the
+    4-byte copies and give the aligned call's bits."""
+    Q, X = _t(_np(q, 128, 9)).to(cuda), _t(_np(n, 128, 10)).to(cuda)
+    qu = torch.empty(q * 128 + 1, device=cuda)[1:].view(q, 128)
+    xu = torch.empty(n * 128 + 1, device=cuda)[1:].view(n, 128)
+    qu.copy_(Q)
+    xu.copy_(X)
+    assert qu.data_ptr() % 16 and xu.data_ptr() % 16
+    for metric in ("l2", "ip"):
+        got = ops.exact_distances(qu, xu, metric=metric)
+        want = ops.exact_distances(Q, X, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_rerank_distances_counts_by_tile(cuda):
+    _build.reset_launch_counts()
+    ops.exact_distances(_t(_np(100, 128, 1)).to(cuda), _t(_np(4000, 128, 2)).to(cuda))
+    ops.exact_distances(_t(_np(1000, 128, 1)).to(cuda), _t(_np(50000, 128, 2)).to(cuda))
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"rerank_distances": 2}
+    assert _build.launch_shapes() == {"rerank_distances": {("small",): 1, ("large",): 1}}
 
 
 @pytest.mark.parametrize("case", _edge_pools(), ids=lambda c: c[0])

@@ -226,12 +226,15 @@ def test_adc_scores_match_reference(ref, metric):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+# (7, 1025, 3, 7) and (9, 2049, 3, 7): m = 3, K = 7, and Q and N that are
+# multiples of no tile (the kernel's 4-query groups, its 1,024-row ranges)
+@pytest.mark.parametrize("q,n,m,kc", [(5, 300, 4, 16), (7, 1025, 3, 7), (9, 2049, 3, 7)])
 @pytest.mark.parametrize("backend", ["ref", "pallas"])
-def test_pq_scan_and_topk_match_reference(ref, backend):
+def test_pq_scan_and_topk_match_reference(ref, backend, q, n, m, kc):
     jnp, jops, _ = ref
     rng = np.random.default_rng(9)
-    luts = rng.random((5, 4, 16)).astype(np.float32)
-    codes = rng.integers(0, 16, size=(300, 4)).astype(np.uint8)
+    luts = rng.random((q, m, kc)).astype(np.float32)
+    codes = rng.integers(0, kc, size=(n, m)).astype(np.uint8)
     want = np.asarray(jops.pq_scan(jnp.asarray(luts), jnp.asarray(codes), backend=backend))
     got = ops.pq_scan(_t(luts), _t(codes))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
@@ -341,6 +344,41 @@ def test_cuda_pq_scan_equals_plain_bit_for_bit(cuda, shape):
     want = ops.pq_scan(luts, codes, backend="ref")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# codewords a subquantizer for each m: byte codes (m = 1, 3) and 16-byte
+# code vectors (m = 16, 32, 64; m = 64 interleaves 2 queries, not 4)
+PQ_K = {1: 16, 3: 7, 16: 256, 32: 256, 64: 256}
+
+
+@pytest.mark.parametrize("m", sorted(PQ_K))
+@pytest.mark.parametrize("n", [1, 1023, 1025, 250_000])
+@pytest.mark.parametrize("q", [1, 7, 100])
+def test_cuda_pq_scan_grid_equals_plain_bit_for_bit(cuda, m, n, q):
+    """m, N one either side of a 1,024-row range and Q one either side of
+    the 4-query groups: the kernel's bits equal the plain version's."""
+    kc = PQ_K[m]
+    rng = np.random.default_rng(m * 7 + n + q)
+    luts, codes = _on(cuda, rng.random((q, m, kc)).astype(np.float32),
+                      rng.integers(0, kc, size=(n, m)).astype(np.uint8))
+    got = ops.pq_scan(luts, codes)
+    want = ops.pq_scan(luts, codes, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_pq_scan_unaligned_codes(cuda):
+    """Codes that start one byte past a 16-byte boundary take the byte loads."""
+    rng = np.random.default_rng(3)
+    luts, codes = _on(cuda, rng.random((7, 32, 256)).astype(np.float32),
+                      rng.integers(0, 256, size=(3000, 32)).astype(np.uint8))
+    odd = torch.empty(3000 * 32 + 1, dtype=torch.uint8, device=cuda)[1:].view(3000, 32)
+    odd.copy_(codes)
+    assert odd.data_ptr() % 16
+    got = ops.pq_scan(luts, odd)
+    want = ops.pq_scan(luts, codes, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # -- the chunked select's edges in the quantized scans (card only) ------------
