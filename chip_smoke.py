@@ -56,6 +56,23 @@ no result line):
    ``refresh_index`` (tombstones plus ``insert_batch``); no deleted row
    may come back, the counts must equal the rows deleted and appended, and
    10 unfiltered probe calls must reach recall@10 0.90 over the live rows.
+9. The serving tier.  (a) The phase-3 snapshot, opened by its id, its four
+   shard graphs decoded from the Puffin file into a ``DeviceAnnIndex``
+   (payload: global row numbers) and probed by ``make_probe_fn`` (k = 10,
+   L = 100, oversample 2) in 10 calls of 100 of the phase-3 queries:
+   recall@10 of 0.90 against phase 3's ground truth.  (b) A cold wave
+   through ``ProbeMicroBatcher`` (max_batch 64, max_wait 2 ms, no cache) on
+   the refreshed index: 2,000 submissions drawn from the first 1,000 phase-3
+   queries by a Zipf law (exponent 1.1, from ``--seed``), tenants "a" and
+   "b" alternating, a deadline of 10 s, one in four filtered by
+   ``price < 200``, from 8 client threads with 8 submissions in flight
+   each.  (c) The same submissions warm, with ``ShardProbeCache`` and
+   ``SemanticResultCache`` attached: every answer bit for bit the cold
+   one's, and p50 latency below the cold wave's.  (d) One file of 4,096
+   rows appended, its first 10 rows copies of the 10 hottest queries: the
+   warm batcher must answer each with its copy first (0 stale hits).  (e)
+   200 submissions while one executor dies holding a fragment: none lost,
+   each equal to a healthy ``probe_batch``.
 
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
@@ -65,12 +82,16 @@ mask (the k sweep: k = 1 is about the scoring, the growth in k the
 select).  It times ``rerank_distances`` at Stage B (the small tile) and
 at the ground-truth chunk (the large tile), ``gather_rerank`` at
 search_pq's pool and at the quantized scan's guard, and ``kmeans_assign``
-at shard ownership and at PQ encoding.  ``--parent DIR`` then holds
+at shard ownership and at PQ encoding.  Every timed row has two times:
+an event pair around one Python call (``ms``, ``plain_ms``,
+``library_ms``: the host's dispatch included) and CUDA-graph replay
+(``device_ms``, ``plain_device_ms``, ``library_device_ms``: the device
+alone).  ``--parent DIR`` then holds
 ``masked_topk.cu``, ``rerank.cu``, ``kmeans_assign.cu`` and ``pq_scan.cu``
 of the checkout ``DIR`` against this one's (equal bits on every launch
 name, times in turns), and, without ``--only-kernels``, every
 ``gather_rerank``, ``kmeans_assign`` and ``rerank_distances`` call of
-phases 3-8 too; ``--only-kernels`` stops after phase 2 without the result
+phases 3-9 too; ``--only-kernels`` stops after phase 2 without the result
 lines.
 
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
@@ -302,10 +323,10 @@ def check_rerank_distances(torch, ops, dev, q, x, metric):
 
 # the shapes phase 2 held against the plain version: gather_rerank by
 # (P, k), kmeans_assign by (D, K), rerank_distances by tile; every shape
-# phases 3-8 launch must be here
+# phases 3-9 launch must be here
 CHECKED: dict = {"gather_rerank": set(), "kmeans_assign": set(), "rerank_distances": set()}
-# graph-replay times of rows 1-3 and 10, beside their host-inclusive ms,
-# plain_ms and library_ms
+# graph-replay times of every row, beside its host-inclusive ms, plain_ms
+# and library_ms
 DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
 
 
@@ -488,9 +509,10 @@ def phase_kernels(torch, dev, shard_n: int, seed: int):
     cs = t(rng.normal(size=(16, 128)))
     err = check_kmeans_assign(torch, ops, xs, cs)
     # (8192, 128, 128): Stage 0 of the small-shard catalog (32 shards x 4
-    # partitions on the 8,192-row sample), centroids in two shared-memory tiles
+    # partitions on the 8,192-row sample), centroids in two shared-memory
+    # tiles; (8192, 32, 128): the same in the cut rehearsal (--small-n 32768)
     for n, k, d in [(1, 1, 1), (1000, 300, 33), (777, 5, 70), (4097, 17, 128), (3000, 16, 130),
-                    (2000, 16, 400), (8192, 128, 128)]:
+                    (2000, 16, 400), (8192, 128, 128), (8192, 32, 128)]:
         check_kmeans_assign(torch, ops, t(rng.normal(size=(n, d))), t(rng.normal(size=(k, d))))
     ex, ec = t(rng.normal(size=(8192, 4))), t(rng.normal(size=(256, 4)))
     main = kmeans_row(xs, cs, err)
@@ -719,6 +741,10 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
             "Q=100 (50 exact, 50 ADC) N=%d D=128 m=32 K=256 k=160 plane of 10 price masks"),
     }
     rows = {}
+    # the unified wrapper reads the exact-query count back from the card, a
+    # host sync that a CUDA graph cannot capture: its device time is the
+    # launch with that count worked out once (the same call, bit for bit)
+    captured = {"unified_masked_topk": _unified_launch(torch, q, x, luts, codes, uniq, idx, flavor, 160)}
     for name, (fn, lib, (q_rows, plane, fl, k), tol, shape) in cases.items():
         # the error reported beside the time is the timed call's own
         err = _check_topk(torch, fn("auto"), fn("ref"), tol, f"timed {name}")
@@ -726,13 +752,55 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
         plain = time_ms(torch, lambda: fn("ref"), reps=5, warmup=1)
         lib_ms = time_ms(torch, lib, reps=5, warmup=1) if lib is not None else None
         b, by = _masked_bound(q_rows, plane, D, M, KC, k, fl)
+        kernel = captured.get(name, lambda: fn("auto"))
+        _same_call(torch, kernel(), fn("auto"), name)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                          **_device_times(torch, kernel, lambda: fn("ref"), lib),
                           bound_ms=b, bound_by=by, shape=shape % shard_n)
-        log(f"{name} [{rows[name]['shape']}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b:.5f} ms ({by}), "
-            f"max abs err {err:.3g} (over every check of phase 2: {errs[name]:.3g})")
+        log(f"{name} [{rows[name]['shape']}]: {_times_line(rows[name])}, max abs err {err:.3g} "
+            f"(over every check of phase 2: {errs[name]:.3g})")
     del lg
     return rows
+
+
+def _device_times(torch, kernel, plain, lib) -> dict:
+    """device_ms, plain_device_ms and library_device_ms (None without a
+    library call) of a masked or quantized row, by CUDA-graph replay;
+    millisecond calls, so fewer of them a replay than rows 1-3."""
+    return dict(device_ms=device_ms(torch, kernel, inner=5, reps=10),
+                plain_device_ms=device_ms(torch, plain, inner=2, reps=5),
+                library_device_ms=None if lib is None else device_ms(torch, lib, inner=2, reps=5))
+
+
+def _times_line(r) -> str:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    lib_dev = "none" if r["library_device_ms"] is None else f"{r['library_device_ms']:.4f} ms"
+    return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} (with the host's "
+            f"dispatch); on the device (graph replay) kernel {r['device_ms']:.4f} ms, plain "
+            f"{r['plain_device_ms']:.4f} ms, library {lib_dev}; bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+
+
+def _same_call(torch, got, want, name) -> None:
+    """The call timed on the device gives the wrapper's outputs bit for bit."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the call timed on the device differs from the wrapper's")
+
+
+def _unified_launch(torch, q, x, luts, codes, uniq, idx, flavor, k):
+    """The launch ``ops.unified_masked_topk_dedup`` makes, with the flavor
+    order and the exact-query count (which the wrapper reads from the card)
+    worked out here once."""
+    from repro_torch.kernels import masked_topk as km
+
+    masks = (uniq != 0).to(torch.uint8).contiguous()
+    rows = idx.to(torch.int32).contiguous()
+    qperm = torch.sort(flavor.to(torch.int32), stable=True).indices.to(torch.int32).contiguous()
+    n_exact = q.shape[0] - int(flavor.sum())
+    return lambda: km._launch(
+        "unified_masked_topk", q.shape[0], x.shape[0], k, device=q.device, queries=q, points=x,
+        luts=luts, codes=codes, mask_rows=masks, row_index=rows, qperm=qperm, n_exact=n_exact)
 
 
 def _quant_checks(torch, ops, q, x, plane, k, what, metrics=("l2", "ip")):
@@ -864,13 +932,41 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
                      q, s, m, kk, dtype=dt, x_scale=xs),
                  wide, f"Q=100 N={shard_n} D=128 mask 50%")
         atol = 1e-5 * _scale(q, x)
+        captured = {}
+        if dtype == "int8":
+            # the int8 wrappers quantize the queries in the call, reading the
+            # scale back from the card (a host sync a CUDA graph cannot
+            # capture): the device times take them quantized once, the
+            # kernel through its wrapper, the plain version as its oracle
+            # computes after quantizing (the same calls, bit for bit)
+            from repro_torch.kernels import masked_topk as km
+
+            sc = (q_scale, x_scale)
+            wide_u8 = wide.to(torch.uint8).reshape(1, -1).contiguous()
+            uniq_u8, idx32 = uniq.to(torch.uint8).contiguous(), idx.to(torch.int32).contiguous()
+
+            def deq(stored=stored, qs=qs, sc=sc):
+                return ref.dequantize_points(qs, sc[0]), ref.dequantize_points(stored, sc[1])
+
+            captured = {
+                "masked_exact_topk_int8": (
+                    lambda s=stored, qs=qs, sc=sc: km.masked_exact_topk(qs, s, wide_u8, None, k, scales=sc),
+                    lambda deq=deq: ref.masked_exact_topk(*deq(), wide, k)),
+                "masked_exact_topk_multi_int8": (
+                    lambda s=stored, qs=qs, sc=sc: km.masked_exact_topk(qs, s, uniq_u8, idx32, k, scales=sc),
+                    lambda deq=deq: ref.masked_exact_topk_multi(*deq(), uniq[idx], k)),
+            }
         for name, (fn, yard, q_rows, plane, shape) in cases.items():
             err = _check_topk(torch, fn("auto"), fn("ref"), atol, f"timed {name}")
             ms = time_ms(torch, lambda: fn("auto"))
             plain = time_ms(torch, lambda: fn("ref"), reps=5, warmup=1)
             lib_ms = time_ms(torch, yard, reps=5, warmup=1)
             b, by = _masked_bound(q_rows, plane, D, M, KC, k, none, elem=elem, peak=peak)
+            kernel, plain_fn = captured.get(name, (lambda fn=fn: fn("auto"), lambda fn=fn: fn("ref")))
+            _same_call(torch, kernel(), fn("auto"), name)
+            _same_call(torch, plain_fn(), fn("ref"), f"{name} (plain)")
             rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                              **_device_times(torch, kernel, plain_fn, yard),
                               bound_ms=b, bound_by=by, shape=shape)
 
     lg = codes.T.long()[None].expand(Q, M, shard_n)
@@ -893,13 +989,8 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
         bound_ms=b, bound_by=by, shape=f"Q=100 N={shard_n} m=32 K=256, (Q, N) out")
     del lg
     for name, r in rows.items():
-        lib_s = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        dev_s = "" if "device_ms" not in r else (
-            f"; on the device (graph replay) kernel {r['device_ms']:.4f} ms, plain "
-            f"{r['plain_device_ms']:.4f} ms, library {r['library_device_ms']:.4f} ms")
-        log(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {lib_s}{dev_s}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max abs err "
-            f"{r['max_abs_err']:.3g} (over every check of phase 2: {errs.get(name, 0.0):.3g})")
+        log(f"{name} [{r['shape']}]: {_times_line(r)}, max abs err {r['max_abs_err']:.3g} (over every "
+            f"check of phase 2: {errs.get(name, 0.0):.3g})")
     return rows
 
 
@@ -1236,7 +1327,7 @@ def _shadow_main_path(torch, old_libs: dict) -> dict:
     (``rerank_distances``) call on a CUDA tensor also runs
     the parent's build of its source, on the same inputs and thread and
     uncounted, and the two outputs are compared bit for bit.  Returns the
-    tally {name: [calls, calls whose bits differ]}, filled as phases 3-8
+    tally {name: [calls, calls whose bits differ]}, filled as phases 3-9
     run."""
     import threading
 
@@ -1413,8 +1504,15 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
         raise AssertionError(f"hit distances disagree with exact distances by {d_err}")
     if recall < 0.90:
         raise AssertionError(f"recall@10 {recall:.4f} < 0.90")
+    # phase 9 opens this snapshot again by its id (with its files' first row
+    # numbers) and scores against this truth
+    starts, base = {}, 0
+    for f in table.current_files():
+        starts[f.path] = base
+        base += f.record_count
     ctx = dict(cluster=cluster, table=table, X=X, Q=Q, T=T, price=price,
-               rows_per_group=rows_per_group, device=cluster.device)
+               rows_per_group=rows_per_group, device=cluster.device, truth=truth,
+               snapshot_id=table.metadata().current_snapshot_id, starts=starts)
     return launches, dict(build_s=build_s, probe_s=probe_s, recall=recall), ctx
 
 
@@ -1476,7 +1574,7 @@ def _add_shapes(phase: str, shapes) -> None:
 
 
 def _shape_totals(name: str) -> dict:
-    """Launches of ``name`` over phases 3-8, by shape."""
+    """Launches of ``name`` over phases 3-9, by shape."""
     out: dict = {}
     for by_kernel in SHAPES.values():
         for shape, count in by_kernel.get(name, {}).items():
@@ -1893,6 +1991,267 @@ def phase_refresh(torch, ctx, n_calls: int):
                           beam_capture_s=capture, recall=recall)
 
 
+# -- phase 9 ----------------------------------------------------------------------
+
+SERVE_POOL = 1_000  # phase 9's queries: the first 1,000 of phase 3
+SERVE_SUBMISSIONS = 2_000  # per wave
+SERVE_CLIENTS = 8  # client threads
+SERVE_WINDOW = 8  # submissions a client keeps in flight
+SERVE_ZIPF = 1.1  # exponent of the law that draws a submission's query
+SERVE_DEADLINE_MS = 10_000
+SERVE_FILTER = "price < 200"  # phase 4's MaskedBeam band, on one submission in four
+FAILOVER_SUBMISSIONS = 200
+FAILOVER_HOLD_S = 0.5
+
+
+def phase_device_probe(torch, ctx, n_queries: int = SERVE_POOL, per_call: int = 100):
+    """9a: the phase-3 snapshot (by its id, so phase 8's tombstones do not
+    apply), its shard graphs decoded from the Puffin file into a
+    ``DeviceAnnIndex``, probed with ``make_probe_fn`` (k = 10, L = 100,
+    oversample 2) against phase 3's ground truth."""
+    from repro_torch.core.blobs import SHARD_BLOB_TYPE, decode_shard_blob
+    from repro_torch.iceberg.puffin import PuffinReader
+    from repro_torch.serving.device_index import DeviceAnnIndex, make_probe_fn
+
+    cluster, rpg, dev = ctx["cluster"], ctx["rows_per_group"], ctx["device"]
+    t0 = time.time()
+    snap = cluster.catalog.load_table("sift").snapshot_by_id(ctx["snapshot_id"])
+    store = cluster.store
+    reader = PuffinReader(store.stat(snap.statistics_file).size, store.range_reader(snap.statistics_file))
+    graphs, payloads, starts = [], [], ctx["starts"]
+    blobs = sorted(reader.blobs_of_type(SHARD_BLOB_TYPE), key=lambda b: int(b.properties["shard-id"]))
+    for b in blobs:
+        g, loc = decode_shard_blob(reader.read_blob(b), device=dev)
+        first = np.array([starts[p] for p in loc.file_paths], np.int64)
+        graphs.append(g)
+        payloads.append(first[loc.file_idx[: g.n].astype(np.int64)]
+                        + loc.row_group[: g.n].astype(np.int64) * rpg + loc.row_offset[: g.n])
+    decode_s = time.time() - t0
+    t0 = time.time()
+    index = DeviceAnnIndex.from_graphs(graphs, payloads=payloads, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.time() - t0
+    del graphs
+    probe = make_probe_fn(k=10, L=100, oversample=2, device=dev)
+    Q, truth = ctx["Q"][:n_queries], ctx["truth"][:n_queries]
+    got = np.empty((n_queries, 10), np.int64)
+    call_s = []
+    for s0 in range(0, n_queries, per_call):
+        t0 = time.time()
+        d, p = probe(index, Q[s0 : s0 + per_call])
+        torch.cuda.synchronize()
+        call_s.append(time.time() - t0)
+        got[s0 : s0 + per_call] = p.cpu().numpy()
+        if not bool(torch.isfinite(d).all()) or bool((d[:, 1:] < d[:, :-1]).any()):
+            raise AssertionError("device probe: non-finite or unsorted distances")
+    recall = _recall(got, truth)
+    secs = sum(call_s)
+    log(f"phase 9a device probe: snapshot {ctx['snapshot_id']} ({len(blobs)} shards of "
+        f"{[int(c) for c in index.counts.cpu()]} rows, cap {index.vectors.shape[1]}), decoded in "
+        f"{decode_s:.2f} s, uploaded in {upload_s:.2f} s; {len(call_s)} calls x {per_call} queries in "
+        f"{secs:.2f} s = {n_queries / secs:.1f} QPS (first call {call_s[0]:.3f} s, building "
+        f"{index.n_shards} beam runners, then {np.median(call_s[1:]):.3f} s a call); recall@10 "
+        f"{recall:.4f}")
+    if recall < 0.90:
+        raise AssertionError(f"device probe recall@10 {recall:.4f} < 0.90")
+    return dict(decode_s=decode_s, upload_s=upload_s, seconds=secs, qps=n_queries / secs,
+                recall=recall)
+
+
+def _wave(batcher, subs, clients: int = SERVE_CLIENTS, window: int = SERVE_WINDOW):
+    """``clients`` threads, thread j submitting ``subs[j::clients]`` with at
+    most ``window`` in flight (submit a window, wait for it, go on).
+    Returns (answers, latencies ms from submit to the Future's completion,
+    whether each was answered at the door (done when ``submit`` returned: a
+    semantic-cache hit), failures (index, exception), seconds)."""
+    import threading
+
+    answers, lat, failures = [None] * len(subs), np.full(len(subs), np.nan), []
+    door = np.zeros(len(subs), bool)
+
+    def client(j):
+        mine = list(range(j, len(subs), clients))
+        for s0 in range(0, len(mine), window):
+            futs = []
+            for i in mine[s0 : s0 + window]:
+                q, tenant, flt = subs[i]
+                t0 = time.perf_counter()
+                fut = batcher.submit(q, 10, filter=flt, tenant=tenant, deadline_ms=SERVE_DEADLINE_MS)
+                door[i] = fut.done()
+                fut.add_done_callback(lambda _f, i=i, t0=t0: lat.__setitem__(
+                    i, (time.perf_counter() - t0) * 1e3))
+                futs.append((i, fut))
+            for i, fut in futs:
+                try:
+                    answers[i] = fut.result(timeout=600)
+                except Exception as exc:  # noqa: BLE001 - counted and reported by the caller
+                    failures.append((i, exc))
+
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(clients)]
+    t0 = time.time()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return answers, lat, door, failures, time.time() - t0
+
+
+def _hits_key(hits):
+    return [(h.file_path, h.row_group, h.row_offset, h.distance) for h in hits]
+
+
+def _wave_line(what, subs, lat, door, secs, stats, failures) -> str:
+    split = ""
+    if door.any():
+        split = (f" (answered at the door {int(door.sum())}: p50 {np.nanpercentile(lat[door], 50):.2f} "
+                 f"ms, p99 {np.nanpercentile(lat[door], 99):.2f} ms; probed {int((~door).sum())}: p50 "
+                 f"{np.nanpercentile(lat[~door], 50):.2f} ms, p99 {np.nanpercentile(lat[~door], 99):.2f} ms)")
+    return (f"{what}: {len(subs)} submissions in {secs:.2f} s = {len(subs) / secs:.1f} QPS; latency "
+            f"p50 {np.nanpercentile(lat, 50):.2f} ms, p99 {np.nanpercentile(lat, 99):.2f} ms{split}; batches "
+            f"{stats.batches} (largest {stats.max_batch_seen}), queries probed {stats.queries}, "
+            f"kernel_dispatches {stats.kernel_dispatches}, deadline misses {stats.deadline_misses}, "
+            f"failed {len(failures)}")
+
+
+def phase_serving(torch, ctx, seed: int, n_subs: int = SERVE_SUBMISSIONS,
+                  n_failover: int = FAILOVER_SUBMISSIONS):
+    """9b-9e: Zipf-skewed traffic of two tenants, a quarter filtered,
+    through ``ProbeMicroBatcher`` on the refreshed 1M index: a cold wave
+    with no cache, the same submissions warm with ``ShardProbeCache`` and
+    ``SemanticResultCache`` (bit for bit the cold answers), an append that
+    the warm batcher must serve at once, and a wave through an executor
+    that dies holding a fragment."""
+    import threading
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving.cache import SemanticResultCache, ShardProbeCache
+    from repro_torch.serving.serve_loop import ProbeMicroBatcher
+
+    cluster, table, rpg = ctx["cluster"], ctx["table"], ctx["rows_per_group"]
+    coord = cluster.coordinator
+    pool = ctx["Q"][:SERVE_POOL]
+    rng = np.random.default_rng(seed + 9)
+    weights = 1.0 / np.arange(1, SERVE_POOL + 1) ** SERVE_ZIPF
+    draws = rng.choice(SERVE_POOL, size=n_subs, p=weights / weights.sum())
+    subs = [(pool[d], "ab"[i % 2], SERVE_FILTER if i % 4 == 0 else None) for i, d in enumerate(draws)]
+    log(f"phase 9 traffic: {n_subs} submissions over {len(np.unique(draws))} distinct pool queries "
+        f"(Zipf {SERVE_ZIPF} over {SERVE_POOL}), {len(set((d, i % 2, i % 4 == 0) for i, d in enumerate(draws)))} "
+        f"distinct (query, tenant, filter) keys; {SERVE_CLIENTS} clients x {SERVE_WINDOW} in flight")
+    launches: dict = {}
+    out = {}
+
+    def drive(what, batcher, wave_subs):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        answers, lat, door, failures, secs = _wave(batcher, wave_subs)
+        torch.cuda.synchronize()
+        got = _build.launch_counts()
+        _add(launches, got)
+        _add_shapes("9", _build.launch_shapes())
+        log(_wave_line(what, wave_subs, lat, door, secs, batcher.stats, failures) + f"; launches {got}")
+        if failures:
+            raise AssertionError(f"{what}: {len(failures)} submissions failed, first {failures[0]!r}")
+        return answers, lat, secs, got
+
+    coord.probe_cache = None
+    with ProbeMicroBatcher(coord, "sift", max_batch=64, max_wait_s=0.002) as cold_mb:
+        cold, cold_lat, cold_s, got = drive("phase 9b cold wave", cold_mb, subs)
+    masked = sum(v for name, v in got.items() if name.startswith("masked_exact_topk"))
+    _need(dict(got, masked_exact_topk_any=masked),
+          ["gather_rerank", "rerank_distances", "masked_exact_topk_any"], "cold wave")
+    out["cold"] = dict(seconds=cold_s, p50=float(np.percentile(cold_lat, 50)),
+                       p99=float(np.percentile(cold_lat, 99)), batches=cold_mb.stats.batches)
+
+    shard_cache = ShardProbeCache(max_bytes=512 << 20)
+    semantic = SemanticResultCache(max_bytes=256 << 20)
+    coord.probe_cache = shard_cache
+    warm_mb = ProbeMicroBatcher(coord, "sift", max_batch=64, max_wait_s=0.002,
+                                semantic_cache=semantic).start()
+    try:
+        warm, warm_lat, warm_s, _ = drive("phase 9c warm wave", warm_mb, subs)
+        st = warm_mb.stats
+        sem_rate = st.semantic_hits / max(1, st.semantic_hits + st.semantic_misses)
+        sc = shard_cache.stats
+        shard_rate = sc.hits / max(1, sc.hits + sc.misses)
+        differ = [i for i in range(n_subs) if _hits_key(warm[i]) != _hits_key(cold[i])]
+        t0 = time.perf_counter()
+        for _ in range(100):
+            warm_mb._snapshot_id()
+        read_ms = (time.perf_counter() - t0) * 10
+        log(f"  warm: semantic cache {st.semantic_hits} hits / {st.semantic_misses} misses "
+            f"({sem_rate:.4f}), shard cache {sc.hits} hits / {sc.misses} misses ({shard_rate:.4f}, "
+            f"{len(shard_cache)} entries, {shard_cache.total_bytes} bytes, {sc.evictions} evictions); "
+            f"answers differing from the cold wave's: {len(differ)} of {n_subs}; the snapshot read at "
+            f"submit, idle: {read_ms:.3f} ms")
+        if differ:
+            i = differ[0]
+            raise AssertionError(f"warm answer {i} differs from the cold one:\n{_hits_key(warm[i])}\n"
+                                 f"{_hits_key(cold[i])}")
+        warm_p50, cold_p50 = float(np.percentile(warm_lat, 50)), out["cold"]["p50"]
+        if not warm_p50 < cold_p50:
+            raise AssertionError(f"warm p50 {warm_p50:.2f} ms is not below cold p50 {cold_p50:.2f} ms")
+        out["warm"] = dict(seconds=warm_s, p50=warm_p50, p99=float(np.percentile(warm_lat, 99)),
+                           semantic_hit_rate=sem_rate, shard_hit_rate=shard_rate)
+
+        # 9d: an append outside the coordinator, served by the warm batcher
+        counts = np.bincount(draws, minlength=SERVE_POOL)
+        hot = np.argsort(-counts, kind="stable")[:10]
+        cached = sum(semantic.lookup(t, pool[h], 10, None) is not None for h in hot for t in "ab")
+        rows = np.concatenate([pool[hot], mixture(SMALL_SHARD - 10, 128, np.random.default_rng(seed + 10))])
+        price = np.random.default_rng(seed + 11).integers(0, PRICE_MAX, size=len(rows)).astype(np.int64)
+        table.append_vectors(rows, num_files=1, rows_per_group=rpg, file_prefix="late",
+                             attributes={"price": price})
+        late = table.current_files()[-1].path
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        stale, worst = 0, 0.0
+        for j, h in enumerate(hot):
+            hits = warm_mb.submit(pool[h], 10, tenant="ab"[j % 2]).result(timeout=600)
+            first = hits[0]
+            ok = (first.file_path, first.row_group, first.row_offset) == (late, 0, j)
+            norm = float(pool[h] @ pool[h])
+            if not ok or abs(first.distance) > 1e-5 * norm:
+                stale += 1
+            worst = max(worst, abs(first.distance))
+        got = _build.launch_counts()
+        _add(launches, got)
+        _add_shapes("9", _build.launch_shapes())
+        log(f"phase 9d staleness: appended {len(rows)} rows ({late.split('/')[-1]}), the first 10 "
+            f"copies of the 10 hottest queries ({cached} of 20 (query, tenant) answers cached before); "
+            f"stale hits {stale} of 10 (max |distance| of the new row {worst:.3g}); semantic hits "
+            f"{warm_mb.stats.semantic_hits}, invalidations {semantic.stats.invalidations}; launches {got}")
+        if stale:
+            raise AssertionError(f"{stale} of 10 hot queries missed their appended copy (stale hits)")
+        out["stale_hits"] = stale
+    finally:
+        warm_mb.stop()
+        coord.probe_cache = None
+
+    # 9e: a wave while one executor holds a fragment and goes dark
+    fsubs = subs[:n_failover]
+    healthy = coord.probe_batch("sift", np.stack([q for q, _, _ in fsubs]), 10,
+                                filter=[f for _, _, f in fsubs])
+    before, redispatches = set(threading.enumerate()), coord.scheduler.stats.redispatches
+    doomed = cluster.executors[1]
+    try:
+        doomed.kill_next(1, hold_s=FAILOVER_HOLD_S)
+        with ProbeMicroBatcher(coord, "sift", max_batch=64, max_wait_s=0.002) as fmb:
+            chaos, _lat, _s, _ = drive("phase 9e failover wave", fmb, fsubs)
+    finally:
+        doomed.revive()
+    for th in set(threading.enumerate()) - before:  # the dead executor's held attempt
+        th.join(timeout=60)
+    redone = coord.scheduler.stats.redispatches - redispatches
+    lost = sum(a is None for a in chaos)
+    differ = sum(_hits_key(a) != _hits_key(b) for a, b in zip(chaos, healthy.hits) if a is not None)
+    log(f"  failover: {lost} lost, {differ} differing from a healthy probe_batch of the same "
+        f"{n_failover} queries; redispatches {redone}")
+    if lost or differ or redone == 0:
+        raise AssertionError(f"failover: {lost} lost, {differ} differing, {redone} redispatches")
+    out["failover"] = dict(lost=lost, differ=differ, redispatches=redone)
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
@@ -1906,7 +2265,7 @@ def main() -> int:
                     help="after phase 2, hold masked_topk.cu, rerank.cu, kmeans_assign.cu and "
                          "pq_scan.cu of the checkout DIR (an earlier commit's tree) against this "
                          "one's: equal bits, times in turns; without --only-kernels, also every "
-                         "gather_rerank, kmeans_assign and rerank_distances call of phases 3-8, "
+                         "gather_rerank, kmeans_assign and rerank_distances call of phases 3-9, "
                          "bit for bit")
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after phase 2 (and --parent), without the result lines")
@@ -1959,11 +2318,14 @@ def main() -> int:
         per_phase["7"] = got
         got, _stats = timed("8 refresh", phase_refresh, torch, ctx, args.filtered_calls)
         per_phase["8"] = got
+        timed("9a device probe", phase_device_probe, torch, ctx)
+        got, _stats = timed("9b-e serving tier", phase_serving, torch, ctx, args.seed)
+        per_phase["9"] = got
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}
     if shadow is not None:
-        log(f"parent vs change on phases 3-8, every call also run on the parent's build: "
+        log(f"parent vs change on phases 3-9, every call also run on the parent's build: "
             f"{ {name: f'{n} calls, {bad} with other bits' for name, (n, bad) in shadow.items()} }")
         if sorted(shadow) != ["gather_rerank", "kmeans_assign", "rerank_distances"] or any(
                 bad for _n, bad in shadow.values()):
@@ -1976,11 +2338,11 @@ def main() -> int:
     for name, checked in CHECKED.items():
         missing = sorted(set(_shape_totals(name)) - checked)
         if missing:
-            raise AssertionError(f"{name} ran at {missing} on phases 3-8: shapes phase 2 did not check")
+            raise AssertionError(f"{name} ran at {missing} on phases 3-9: shapes phase 2 did not check")
     for name, count in launches.items():
         # pq_scan has no production caller (in either package): phase 2 holds it
         if count == 0 and name not in PHASE2_ONLY:
-            raise AssertionError(f"kernel {name} was not launched on phases 3-8")
+            raise AssertionError(f"kernel {name} was not launched on phases 3-9")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
@@ -1988,7 +2350,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-            **{key: r[key] for key in DEVICE_KEYS if key in r},
+            **{key: r[key] for key in DEVICE_KEYS},
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
         })
