@@ -77,19 +77,25 @@ no result line):
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
 ``pq_scan`` (bit for bit) against their plain versions, and times each
-exact scan (f32, bf16, int8) at k = 1, 40 and 160 and under an all-zero
-mask (the k sweep: k = 1 is about the scoring, the growth in k the
-select).  It times ``rerank_distances`` at Stage B (the small tile) and
+exact scan (f32, bf16, int8) at k = 1, 40 and 160, with one row in 64
+passing and under an all-zero mask (the k sweep: the 0 % mask is the
+floor without scoring, one row in 64 adds the scoring, the 50 % mask the
+select; the growth in k the select's and the merge's).  It times ``rerank_distances`` at Stage B (the small tile) and
 at the ground-truth chunk (the large tile), ``gather_rerank`` at
 search_pq's pool and at the quantized scan's guard, and ``kmeans_assign``
 at shard ownership and at PQ encoding.  Every timed row has two times:
 an event pair around one Python call (``ms``, ``plain_ms``,
 ``library_ms``: the host's dispatch included) and CUDA-graph replay
 (``device_ms``, ``plain_device_ms``, ``library_device_ms``: the device
-alone).  ``--parent DIR`` then holds
+alone).  The masked rows also carry the device time of their two
+launches apart (``pass_ms``, from ``torch.profiler``), row 5 (f32) is
+timed again under phase 4's ``price < 4`` and ``price < 200`` bands and
+row 5' (bf16) at phase 7's ``price < 900`` on 4,096 rows (``at_shapes``).
+``--parent DIR`` then holds
 ``masked_topk.cu``, ``rerank.cu``, ``kmeans_assign.cu`` and ``pq_scan.cu``
 of the checkout ``DIR`` against this one's (equal bits on every launch
-name, times in turns), and, without ``--only-kernels``, every
+name but the bf16 ones, which are held to the plain version's tolerance;
+times in turns), and, without ``--only-kernels``, every
 ``gather_rerank``, ``kmeans_assign`` and ``rerank_distances`` call of
 phases 3-9 too; ``--only-kernels`` stops after phase 2 without the result
 lines.
@@ -226,6 +232,38 @@ def device_ms(torch, fn, inner: int = 20, reps: int = 15) -> float:
         times.append(a.elapsed_time(b) / inner)
     del graph
     return float(np.median(times))
+
+
+def pass_split_ms(torch, fn, reps: int = 10):
+    """Device time of a masked launch's two kernels apart (ms a call), from
+    ``torch.profiler``: pass 1 (``chunk_topk_kernel``: mask, scoring and the
+    chunk select) and pass 2 (``merge_kernel``).  (None, None) where the
+    trace holds no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = [0.0, 0.0]
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if "chunk_topk_kernel" in e.key:
+            split[0] += us
+        elif "merge_kernel" in e.key:
+            split[1] += us
+    if not split[0]:
+        return None, None
+    return split[0] / reps / 1e3, split[1] / reps / 1e3
+
+
+def _split_text(split) -> str:
+    p1, p2 = split
+    return "split not measured" if p1 is None else f"pass 1 {p1:.4f} + pass 2 {p2:.4f} ms"
 
 
 def mixture(
@@ -620,16 +658,30 @@ def _masked_checks(torch, ops, q, x, luts, codes, plane, k, what, metrics=("l2",
 SWEEP_K = (1, 40, 160)
 
 
+def _sweep_masks(mask):
+    """The k sweep's two other masks: one row in 64 passing (every 64-row
+    step is scored, the select sees 8 live rows a chunk) and none (no step
+    is scored: the mask pass, the sentinels and the merge)."""
+    sparse = mask.new_zeros(mask.shape)
+    sparse[..., ::64] = True
+    return {"1 row in 64": sparse, "mask 0%": mask.new_zeros(mask.shape)}
+
+
 def _k_sweep(torch, name, fn, mask, shape):
     """Times (ms) of one exact scan ``fn(mask, k)`` at k = 1, 40 and 160 on
-    ``mask`` and at k = 160 under an all-zero mask, where the 64-row skip
-    leaves no scoring: k = 1 is about the scoring's time, the growth in k is
-    the select's.  Logs one line."""
-    t = {k: time_ms(torch, lambda k=k: fn(mask, k)) for k in SWEEP_K}
-    zero = torch.zeros_like(mask)
-    t["mask 0%"] = time_ms(torch, lambda: fn(zero, SWEEP_K[-1]))
-    log(f"k sweep {name} [{shape}]: " + ", ".join(f"k={k} {t[k]:.4f} ms" for k in SWEEP_K)
-        + f", mask 0% k={SWEEP_K[-1]} {t['mask 0%']:.4f} ms")
+    ``mask``, and at k = 160 with one row in 64 passing and with none, each
+    beside its pass-1 / pass-2 split on the device.  The 0 % mask is the
+    floor without scoring (mask pass, sentinels, merge), one row in 64 adds
+    the scoring of every row with almost no select, and ``mask`` adds the
+    select; the growth in k is the select's and the merge's.  Logs one
+    line."""
+    calls = {f"k={k}": (mask, k) for k in SWEEP_K}
+    calls.update({f"{label} k={SWEEP_K[-1]}": (m, SWEEP_K[-1]) for label, m in _sweep_masks(mask).items()})
+    parts = []
+    for label, (m, k) in calls.items():
+        ms = time_ms(torch, lambda m=m, k=k: fn(m, k))
+        parts.append(f"{label} {ms:.4f} ms ({_split_text(pass_split_ms(torch, lambda m=m, k=k: fn(m, k)))})")
+    log(f"k sweep {name} [{shape}]: " + ", ".join(parts))
 
 
 def _masked_bound(q_rows, plane, d, m, kc, k, flavor, elem=4, peak=PEAK_F32):
@@ -746,21 +798,52 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
     # launch with that count worked out once (the same call, bit for bit)
     captured = {"unified_masked_topk": _unified_launch(torch, q, x, luts, codes, uniq, idx, flavor, 160)}
     for name, (fn, lib, (q_rows, plane, fl, k), tol, shape) in cases.items():
-        # the error reported beside the time is the timed call's own
-        err = _check_topk(torch, fn("auto"), fn("ref"), tol, f"timed {name}")
-        ms = time_ms(torch, lambda: fn("auto"))
-        plain = time_ms(torch, lambda: fn("ref"), reps=5, warmup=1)
-        lib_ms = time_ms(torch, lib, reps=5, warmup=1) if lib is not None else None
-        b, by = _masked_bound(q_rows, plane, D, M, KC, k, fl)
-        kernel = captured.get(name, lambda: fn("auto"))
-        _same_call(torch, kernel(), fn("auto"), name)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                          **_device_times(torch, kernel, lambda: fn("ref"), lib),
-                          bound_ms=b, bound_by=by, shape=shape % shard_n)
-        log(f"{name} [{rows[name]['shape']}]: {_times_line(rows[name])}, max abs err {err:.3g} "
-            f"(over every check of phase 2: {errs[name]:.3g})")
+        rows[name] = _masked_row(torch, name, fn, lib, _masked_bound(q_rows, plane, D, M, KC, k, fl), tol,
+                                 shape % shard_n, kernel=captured.get(name))
+        log(f"{name} [{rows[name]['shape']}]: {_times_line(rows[name])}, max abs err "
+            f"{rows[name]['max_abs_err']:.3g} (over every check of phase 2: {errs[name]:.3g})")
+    # row 5 where the main path runs it: 100 queries on a 250k-row shard
+    # under phase 4's ExactScan band (price < 4) and MaskedBeam's fallback
+    # band (price < 200), k = 40
+    at = []
+    for thr in PROD_F32_BANDS:
+        band = price < thr
+        at.append(_masked_row(
+            torch, "masked_exact_topk", lambda b, m=band: ops.masked_exact_topk(q, x, m, 40, backend=b),
+            lambda m=band: lib_exact(m), _masked_bound(1, band[None, :].expand(Q, -1), D, M, KC, 40, none),
+            atol, f"Q=100 N={shard_n} D=128 k=40 price < {thr}"))
+        log(f"masked_exact_topk [{at[-1]['shape']}]: {_times_line(at[-1])}, max abs err "
+            f"{at[-1]['max_abs_err']:.3g}")
+    rows["masked_exact_topk"]["at_shapes"] = at
     del lg
     return rows
+
+
+# phase 4's price bands where row 5 (f32) runs on 250k-row shards: ExactScan
+# (price < 4) and the MaskedBeam fallbacks (price < 200)
+PROD_F32_BANDS = (4, 200)
+# phase 7's band where row 5' (bf16) runs on 4,096-row shards
+PROD_BF16_BAND = 900
+
+
+def _masked_row(torch, name, fn, lib, bound, tol, shape, kernel=None, plain=None) -> dict:
+    """One timed masked row: ``fn(backend)`` checked against its plain
+    version (the error reported is this call's), host-inclusive and
+    graph-replay times of the kernel and the plain version (``kernel`` and
+    ``plain``, default ``fn("auto")`` and ``fn("ref")``, each checked to
+    give the wrapper's bits) and of the library call ``lib`` (or None), the
+    pass-1 / pass-2 split, and ``bound``."""
+    err = _check_topk(torch, fn("auto"), fn("ref"), tol, f"timed {name} [{shape}]")
+    kernel = kernel or (lambda: fn("auto"))
+    plain = plain or (lambda: fn("ref"))
+    _same_call(torch, kernel(), fn("auto"), name)
+    _same_call(torch, plain(), fn("ref"), f"{name} (plain)")
+    split = pass_split_ms(torch, kernel)
+    return dict(max_abs_err=err, ms=time_ms(torch, lambda: fn("auto")),
+                plain_ms=time_ms(torch, lambda: fn("ref"), reps=5, warmup=1),
+                library_ms=time_ms(torch, lib, reps=5, warmup=1) if lib is not None else None,
+                **_device_times(torch, kernel, plain, lib),
+                pass_ms=list(split), bound_ms=bound[0], bound_by=bound[1], shape=shape)
 
 
 def _device_times(torch, kernel, plain, lib) -> dict:
@@ -775,8 +858,9 @@ def _device_times(torch, kernel, plain, lib) -> dict:
 def _times_line(r) -> str:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     lib_dev = "none" if r["library_device_ms"] is None else f"{r['library_device_ms']:.4f} ms"
+    split = f" ({_split_text(r['pass_ms'])})" if "pass_ms" in r else ""
     return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} (with the host's "
-            f"dispatch); on the device (graph replay) kernel {r['device_ms']:.4f} ms, plain "
+            f"dispatch); on the device (graph replay) kernel {r['device_ms']:.4f} ms{split}, plain "
             f"{r['plain_device_ms']:.4f} ms, library {lib_dev}; bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
 
@@ -889,13 +973,15 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
     Q, D, M, KC = 100, 128, 32, 256
     k = planner.quant_guard_pool(40)
     thresholds = (2, 3, 4, 5, 6, 100, 325, 550, 775, 1000)
-    for n in (4096, shard_n):
+    for n in (SMALL_SHARD, shard_n):
         q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, n, D, 0.0, m=M, kc=KC)
         price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=n)).to(dev)
         uniq = torch.stack([price < t for t in thresholds])
         idx = torch.as_tensor(np.arange(Q) % uniq.shape[0]).to(dev)
         merge(_quant_checks(torch, ops, q, x, uniq[idx], k, f"main shape N={n}", metrics=("l2",)))
         pq_err = _pq_scan_check(torch, ops, luts, codes, f"pq_scan main shape N={n}")
+        if n == SMALL_SHARD:
+            small = (q, x, price < PROD_BF16_BAND)
     # the last (one-shard) inputs are timed; pq_err is their pq_scan check's
     wide = price < 5000
     none = torch.zeros(Q, dtype=torch.bool, device=dev)
@@ -957,17 +1043,27 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
                     lambda deq=deq: ref.masked_exact_topk_multi(*deq(), uniq[idx], k)),
             }
         for name, (fn, yard, q_rows, plane, shape) in cases.items():
-            err = _check_topk(torch, fn("auto"), fn("ref"), atol, f"timed {name}")
-            ms = time_ms(torch, lambda: fn("auto"))
-            plain = time_ms(torch, lambda: fn("ref"), reps=5, warmup=1)
-            lib_ms = time_ms(torch, yard, reps=5, warmup=1)
-            b, by = _masked_bound(q_rows, plane, D, M, KC, k, none, elem=elem, peak=peak)
-            kernel, plain_fn = captured.get(name, (lambda fn=fn: fn("auto"), lambda fn=fn: fn("ref")))
-            _same_call(torch, kernel(), fn("auto"), name)
-            _same_call(torch, plain_fn(), fn("ref"), f"{name} (plain)")
-            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                              **_device_times(torch, kernel, plain_fn, yard),
-                              bound_ms=b, bound_by=by, shape=shape)
+            kernel, plain_fn = captured.get(name, (None, None))
+            rows[name] = _masked_row(
+                torch, name, fn, yard, _masked_bound(q_rows, plane, D, M, KC, k, none, elem=elem, peak=peak),
+                atol, shape, kernel=kernel, plain=plain_fn)
+
+    # row 5' where the main path runs it: phase 7's ExactScan of a 4,096-row
+    # shard, 100 queries under price < 900, the quantized pool k = 160
+    sq, sx, band = small
+    sstored, _ = ref.quantize_points(sx, "bf16")
+    sqs, _ = ref.quantize_points(sq, "bf16")
+
+    def small_lib():
+        d = ((sqs.float() ** 2).sum(1, keepdim=True) - 2 * torch.mm(sqs, sstored.T).float()
+             + (sstored.float() ** 2).sum(1)[None, :])
+        return torch.topk(d.masked_fill_(~band, float("inf")), k, dim=1, largest=False)
+
+    rows["masked_exact_topk_bf16"]["at_shapes"] = [_masked_row(
+        torch, "masked_exact_topk_bf16",
+        lambda b: ops.masked_exact_topk(sq, sstored, band, k, backend=b, dtype="bf16", x_scale=1.0),
+        small_lib, _masked_bound(1, band[None, :].expand(Q, -1), D, M, KC, k, none, elem=2, peak=PEAK_BF16),
+        1e-5 * _scale(sq, sx), f"Q=100 N={SMALL_SHARD} D=128 k={k} price < {PROD_BF16_BAND}")]
 
     lg = codes.T.long()[None].expand(Q, M, shard_n)
 
@@ -991,6 +1087,8 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
     for name, r in rows.items():
         log(f"{name} [{r['shape']}]: {_times_line(r)}, max abs err {r['max_abs_err']:.3g} (over every "
             f"check of phase 2: {errs.get(name, 0.0):.3g})")
+        for a in r.get("at_shapes", []):
+            log(f"{name} [{a['shape']}]: {_times_line(a)}, max abs err {a['max_abs_err']:.3g}")
     return rows
 
 
@@ -1083,6 +1181,33 @@ def _same_bits(torch, name: str, old, new, calls, what: str) -> dict:
         raise AssertionError(f"--parent {what}: outputs differ from the parent's: {bad}")
     log(f"parent vs change {what}: {len(calls)} calls over {len(counts)} launch names give equal bits "
         f"(f32 as int32 views) and ids")
+    return counts
+
+
+def _same_tolerance(torch, name: str, old, new, calls, atol, what: str) -> dict:
+    """Run ``calls`` (label, fn(backend)) with ``csrc/<name>.cu`` from
+    ``old`` and then ``new``; each build's outputs must agree with the plain
+    version (``_check_topk``: distances within ``atol``, the same
+    sentinels, ids equal outside ties), for a change whose scores round
+    apart from its parent's.  Returns the launch counts by name."""
+    from repro_torch.kernels import _build
+
+    err = {}
+    for lib, who in ((old, "parent"), (new, "change")):
+        _launching(name, lib)
+        _build.reset_launch_counts()
+        got = [fn("auto") for _label, fn in calls]
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        if sum(counts.values()) < len(calls):
+            raise AssertionError(f"--parent {what}: the {who} build launched {sum(counts.values())} of "
+                                 f"{len(calls)}")
+        err[who] = max((_check_topk(torch, g, fn("ref"), atol, f"--parent {what} {who} {label}")
+                        for g, (label, fn) in zip(got, calls)), default=0.0)
+    _launching(name, new)
+    log(f"parent vs change {what}: {len(calls)} calls over {len(counts)} launch names within the plain "
+        f"version's tolerance (atol {atol:.3g}): max abs err parent {err['parent']:.3g}, change "
+        f"{err['change']:.3g}")
     return counts
 
 
@@ -1230,15 +1355,19 @@ def _parent_rerank_pq(torch, dev, shard_n: int, seed: int, libs: dict, old: dict
 def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     """``--parent DIR``: this checkout's kernels of ``masked_topk.cu``,
     ``rerank.cu``, ``kmeans_assign.cu`` and ``pq_scan.cu`` against those of
-    ``DIR`` (an earlier commit's tree).  Every launch name of
-    ``masked_topk.cu`` on seeded phase-2 inputs (N = 4,096 and one shard;
-    both metrics, the 50 % row mask and the dedup'd plane of ten price
-    masks, k = 40 and 160) gives the same distance bits and ids from both
-    builds, and so do ``gather_rerank`` and ``kmeans_assign`` (see
+    ``DIR`` (an earlier commit's tree).  Every f32, int8, ADC and unified
+    launch name of ``masked_topk.cu`` on seeded phase-2 inputs (N = 4,096
+    and one shard; both metrics, the 50 % row mask and the dedup'd plane of
+    ten price masks, k = 40 and 160) gives the same distance bits and ids
+    from both builds; the bf16 names, whose tile may round apart from its
+    parent's, are held to the plain version's tolerance and ids from both
+    builds instead.  So are ``gather_rerank`` and ``kmeans_assign`` (see
     ``_parent_rerank_kmeans``), ``rerank_distances`` and ``pq_scan`` (see
-    ``_parent_rerank_pq``); then the phase-2 timed calls and the k
-    sweeps, timed in turns (parent, change, change, parent) on this card.
-    Returns the parent's libraries by source name."""
+    ``_parent_rerank_pq``), bit for bit.  Then every masked launch name at
+    its phase-2 timed shape, row 5 under the main path's price bands, row
+    5' at phase 7's shape (device and host-inclusive times) and the k
+    sweeps are timed in turns (parent, change, change, parent) on this
+    card.  Returns the parent's libraries by source name."""
     from repro_torch.kernels import _build, ops, ref
 
     old_libs = _parent_libs(parent)
@@ -1249,7 +1378,8 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     rng = np.random.default_rng(seed + 4)
     Q, D, M, KC = 100, 128, 32, 256
     thresholds = (2, 3, 4, 5, 6, 100, 325, 550, 775, 1000)
-    for n in (4096, shard_n):
+    data = {}
+    for n in (SMALL_SHARD, shard_n):
         q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, n, D, 0.0, m=M, kc=KC)
         price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=n)).to(dev)
         uniq = torch.stack([price < t for t in thresholds])
@@ -1257,7 +1387,11 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
         wide = price < 5000
         flavor = torch.arange(Q, device=dev) % 2 == 1
         quant = {dt: ref.quantize_points(x, dt) for dt in QUANT}
-        calls = []
+        data[n] = (q, x, price, quant)
+        # calls held bit for bit (f32, int8, ADC, unified) and, for bf16,
+        # whose tile scores on the tensor cores in another order, to the
+        # plain version's tolerance (each call takes its backend)
+        calls, close = [], []
         for k in (40, 160):
             calls += [
                 (f"masked_pq_topk k={k}", lambda k=k: ops.masked_pq_topk(luts, codes, wide, k)),
@@ -1276,48 +1410,77 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
                 ]
                 for dt, (st, xs) in quant.items():
                     kw = dict(metric=metric, dtype=dt, x_scale=xs)
-                    calls += [
+                    pair = [
                         (f"masked_exact_topk_{dt} k={k} {metric}",
-                         lambda k=k, st=st, kw=kw: ops.masked_exact_topk(q, st, wide, k, **kw)),
+                         lambda b, k=k, st=st, kw=kw: ops.masked_exact_topk(q, st, wide, k, backend=b, **kw)),
                         (f"masked_exact_topk_multi_{dt} k={k} {metric}",
-                         lambda k=k, st=st, kw=kw: ops.masked_exact_topk_dedup(q, st, uniq, idx, k, **kw)),
+                         lambda b, k=k, st=st, kw=kw: ops.masked_exact_topk_dedup(
+                             q, st, uniq, idx, k, backend=b, **kw)),
                     ]
+                    if dt == "bf16":
+                        close += pair
+                    else:
+                        calls += [(label, lambda fn=fn: fn("auto")) for label, fn in pair]
         counts = _same_bits(torch, "masked_topk", old, new, calls, f"masked_topk.cu N={n}")
+        counts.update(_same_tolerance(torch, "masked_topk", old, new, close, 1e-5 * (_scale(q, x) + 1.0),
+                                      f"masked_topk.cu bf16 N={n}"))
         if set(counts) != set(MASKED_NAMES):
             raise AssertionError(f"--parent N={n}: launched {sorted(counts)}, not every masked launch name")
 
-    def turns(fn):
-        return _turns(torch, "masked_topk", old, new, fn)
+    # the phase-2 timed calls (one shard), row 5 under the main path's bands
+    # and row 5' at phase 7's shape; (host-timed call, device-timed call):
+    # the int8 and unified wrappers read a value back from the card, so
+    # their device times take the launch with it worked out once
+    from repro_torch.kernels import masked_topk as km
 
-    st = quant  # the one-shard inputs of the last round
+    q, x, price, quant = data[shard_n]
+    sq, _sx, sprice, squant = data[SMALL_SHARD]
     timed = {
         "masked_exact_topk": lambda: ops.masked_exact_topk(q, x, wide, 40),
         "masked_exact_topk_multi": lambda: ops.masked_exact_topk_dedup(q, x, uniq, idx, 40),
         "masked_pq_topk": lambda: ops.masked_pq_topk(luts, codes, wide, 160),
         "masked_pq_topk_multi": lambda: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, 160),
-        "unified_masked_topk": lambda: ops.unified_masked_topk_dedup(
-            q, x, luts, codes, uniq, idx, flavor, 160),
     }
-    for dt, (s, xs) in st.items():
-        timed[f"masked_exact_topk_{dt}"] = lambda s=s, xs=xs, dt=dt: ops.masked_exact_topk(
-            q, s, wide, 160, dtype=dt, x_scale=xs)
-        timed[f"masked_exact_topk_multi_{dt}"] = lambda s=s, xs=xs, dt=dt: ops.masked_exact_topk_dedup(
-            q, s, uniq, idx, 160, dtype=dt, x_scale=xs)
-    for name, fn in timed.items():
-        a, b = turns(fn)
-        log(f"parent vs change {name} [phase-2 timed shape, N={shard_n}]: parent {a:.4f} ms, "
-            f"change {b:.4f} ms, change/parent {b / a:.3f}")
-    zero = torch.zeros_like(wide)
+    timed = {f"{name} [phase-2 timed shape, N={shard_n}]": (fn, fn) for name, fn in timed.items()}
+    timed[f"unified_masked_topk [phase-2 timed shape, N={shard_n}]"] = (
+        lambda: ops.unified_masked_topk_dedup(q, x, luts, codes, uniq, idx, flavor, 160),
+        _unified_launch(torch, q, x, luts, codes, uniq, idx, flavor, 160))
+    wide_u8 = wide.to(torch.uint8).reshape(1, -1).contiguous()
+    uniq_u8, idx32 = uniq.to(torch.uint8).contiguous(), idx.to(torch.int32).contiguous()
+    for dt, (s, xs) in quant.items():
+        qs, q_scale = ref.quantize_points(q, dt)
+        sc = (q_scale, xs) if dt == "int8" else None
+        timed[f"masked_exact_topk_{dt} [phase-2 timed shape, N={shard_n}]"] = (
+            lambda s=s, xs=xs, dt=dt: ops.masked_exact_topk(q, s, wide, 160, dtype=dt, x_scale=xs),
+            lambda s=s, qs=qs, sc=sc: km.masked_exact_topk(qs, s, wide_u8, None, 160, scales=sc))
+        timed[f"masked_exact_topk_multi_{dt} [phase-2 timed shape, N={shard_n}]"] = (
+            lambda s=s, xs=xs, dt=dt: ops.masked_exact_topk_dedup(q, s, uniq, idx, 160, dtype=dt, x_scale=xs),
+            lambda s=s, qs=qs, sc=sc: km.masked_exact_topk(qs, s, uniq_u8, idx32, 160, scales=sc))
+    for thr in PROD_F32_BANDS:
+        fn = (lambda m=price < thr: ops.masked_exact_topk(q, x, m, 40))
+        timed[f"masked_exact_topk [Q=100 N={shard_n} k=40 price < {thr}]"] = (fn, fn)
+    fn = (lambda m=sprice < PROD_BF16_BAND, s=squant["bf16"][0]: ops.masked_exact_topk(
+        sq, s, m, 160, dtype="bf16", x_scale=1.0))
+    timed[f"masked_exact_topk_bf16 [Q=100 N={SMALL_SHARD} k=160 price < {PROD_BF16_BAND}]"] = (fn, fn)
+    for label, (host, dev_fn) in timed.items():
+        a, b = _turns(torch, "masked_topk", old, new, dev_fn,
+                      timer=lambda torch, fn: device_ms(torch, fn, inner=5, reps=10))
+        ha, hb = _turns(torch, "masked_topk", old, new, host)
+        log(f"parent vs change {label}: parent {a:.4f} ms, change {b:.4f} ms, change/parent {b / a:.3f} "
+            f"(device); with the host's dispatch {ha:.4f} / {hb:.4f} ms")
     for dt in ("f32",) + tuple(QUANT):
-        s, xs = (x, None) if dt == "f32" else st[dt]
+        s, xs = (x, None) if dt == "f32" else quant[dt]
         kw = {} if dt == "f32" else dict(dtype=dt, x_scale=xs)
         parts = []
-        for label, mask, k in [(f"k={k}", wide, k) for k in SWEEP_K] + [("mask 0% k=160", zero, 160)]:
-            a, b = turns(lambda mask=mask, k=k: ops.masked_exact_topk(q, s, mask, k, **kw))
+        sweep = [(f"k={k}", wide, k) for k in SWEEP_K]
+        sweep += [(f"{label} k=160", m, 160) for label, m in _sweep_masks(wide).items()]
+        for label, mask, k in sweep:
+            a, b = _turns(torch, "masked_topk", old, new,
+                          lambda mask=mask, k=k: ops.masked_exact_topk(q, s, mask, k, **kw))
             parts.append(f"{label} {a:.4f} / {b:.4f}")
         name = "masked_exact_topk" + ("" if dt == "f32" else f"_{dt}")
-        log(f"parent vs change k sweep {name} [Q=100 N={shard_n} D=128 mask 50%], parent / change ms: "
-            + ", ".join(parts))
+        log(f"parent vs change k sweep {name} [Q=100 N={shard_n} D=128 mask 50%], parent / change ms "
+            "(with the host's dispatch): " + ", ".join(parts))
     return old_libs
 
 
@@ -2264,7 +2427,8 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="after phase 2, hold masked_topk.cu, rerank.cu, kmeans_assign.cu and "
                          "pq_scan.cu of the checkout DIR (an earlier commit's tree) against this "
-                         "one's: equal bits, times in turns; without --only-kernels, also every "
+                         "one's: equal bits (bf16: the plain version's tolerance), times in turns; "
+                         "without --only-kernels, also every "
                          "gather_rerank, kmeans_assign and rerank_distances call of phases 3-9, "
                          "bit for bit")
     ap.add_argument("--only-kernels", action="store_true",
@@ -2354,6 +2518,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
         })
+        if "pass_ms" in r:
+            kernels[-1]["pass_ms"] = r["pass_ms"]
+        if "at_shapes" in r:
+            # the same kernel timed at the shapes the main path gives it
+            kernels[-1]["at_shapes"] = r["at_shapes"]
         if "shapes" in r:
             by_shape = _shape_totals(name)
             kernels[-1]["shapes"] = [

@@ -15,21 +15,23 @@
 // - masked_exact_topk_bf16 / _int8 (and their _multi forms) replace the
 //   reduced-precision scans of masked_exact_topk_pallas and
 //   masked_exact_topk_multi_pallas: bf16 (_masked_exact_kernel on bf16
-//   inputs) loads bf16 and multiplies and adds in f32, the norms from the
-//   upcast values; int8 (_masked_exact_q_kernel) sums the int8 x int8
-//   cross in int32 (__dp4a on four packed values) and multiplies it by
-//   q_scale * x_scale afterwards, and the norms are f32 sums of the squared
-//   dequantized values (x * scale), as masked_topk.py:217-231 computes them.
+//   inputs) multiplies bf16 values on the tensor cores and sums in f32, the
+//   norms f32 sums of the upcast values; int8 (_masked_exact_q_kernel) sums
+//   the int8 x int8 cross in int32 (__dp4a on four packed values) and
+//   multiplies it by q_scale * x_scale afterwards, and the norms are f32
+//   sums of the squared dequantized values (x * scale), as
+//   masked_topk.py:217-231 computes them.
 //
-// The three share all device code: the masked expanded-form distance tile,
-// the ADC row score and the chunked top-k select and merge.  A score depends
-// only on (query, row): the cross product and the norms are each one fused
-// multiply-add chain in feature order, the ADC score one chain of adds in
-// subquantizer order, and the rounding is spelled out with the _rn
-// intrinsics so the compiler cannot contract differently in two places.
-// The top-k orders by (score, row id), ties to the lowest id as lax.top_k
-// does.  So an exact query gets the same bits from masked_exact_topk and
-// from unified_masked_topk, and an ADC query the same from masked_pq_topk.
+// The three share all device code: the masked expanded-form distance
+// tiles, the ADC row score and the chunked top-k select and merge.  An f32
+// or int8 score depends only on (query, row): the cross product and the
+// norms are each one fused multiply-add chain in feature order from +0.0,
+// the ADC score one chain of adds in subquantizer order, and the rounding
+// is spelled out with the _rn intrinsics so the compiler cannot contract
+// differently in two places.  The top-k orders by (score, row id), ties to
+// the lowest id as lax.top_k does.  So an exact query gets the same bits
+// from masked_exact_topk and from unified_masked_topk, and an ADC query
+// the same from masked_pq_topk.
 //
 // Mask.  Bytes, read where they lie: U unique rows (U, N) and a (Q,) index
 // naming each query's row, or one shared row (index null).  A heterogeneous
@@ -70,29 +72,76 @@
 // select's cost follows the live rows, not k; only the k slots written and
 // merged grow with it.
 //
-// Exact tiles: 32 queries x 64 rows per step, 256 threads each holding a
-// 2 x 4 register block, D streamed through shared memory in chunks of 16 as
-// in rerank.cu, full f32 on the SIMT units (no TF32: the reference's scores
-// are f32).  A step whose 64 rows no query of the tile may see is skipped,
-// so a selective predicate reads and scores few rows.  ADC tiles: the LUTs of a few queries (m K 4 bytes each, 32 KB
-// at m = 32, K = 256) and the chunk's codes (uint8, one contiguous range)
-// sit in shared memory, and each thread scores whole rows.  The TPU's
-// one-hot LUT matmul exists only because the TPU has no lane gather
+// Mask pass (f32 and bf16 tiles).  A block reads its chunk's mask bytes
+// once for each distinct mask row of its tile (8-byte loads where the
+// rows allow), packs them into bits in shared memory, and works out from
+// the bits which 64-row units of the chunk any query of the tile may see.
+// The skip, the staging and the score write read those bits: a unit no
+// query may see is neither copied nor scored, so a selective predicate
+// (price < 4 passes 0.04 % of the rows) reads and scores few rows.
+//
+// f32 tile (rows 5, 7 and the exact half of 9): 32 queries x the whole
+// 512-row chunk, 256 threads each holding an 8 x 8 register block (8
+// queries x 8 rows); warp w covers all 32 queries x the chunk's rows
+// [64 w, 64 w + 64) and skips its multiply-adds when no query of the tile
+// may see them.  D streams through a double-buffered ring of 16-feature
+// stages (64 bytes of a row a copy round) filled by 16-byte cp.async copies
+// (4-byte ones where rows are not 16-byte aligned), zero-filled past D, N
+// and the dead units; once it is spent the chunk's scores overlay it, so a
+// block takes 74 KB of shared memory and two fit an SM with the 128
+// registers the 64 sums need.  Each multiply-add step reads a pair of
+// features of 8 query rows and 8 point rows with 64-bit shared loads and
+// does 128 multiply-adds; the 16-byte quads of a staged row are swizzled
+// (point rows by (row >> 1) & 3, query rows by (row >> 1) & 1) so a warp's
+// 8 point rows and 4 query rows fall in distinct banks.  |x|^2 (two rows a
+// thread) and |q|^2 (a thread a query) are summed from the same stages,
+// once a row a block.  Full f32 on the SIMT units (no TF32: the
+// reference's scores are f32), each cross product one __fmaf_rn chain in
+// feature order, so a score's bits do not depend on the tile shape.  A last
+// query tile of 16 or fewer queries runs a 4, 2 or 1 x 8 block (Q = 100:
+// 100 query slots scored, not 128).  A chunk no query of the tile may see
+// writes its sentinels and nothing else.
+//
+// bf16 tile (rows 5', 7'): scores on the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), points on the M side (16
+// rows), queries on the N side (8 a fragment), both (rows, D) row-major, so
+// neither is transposed; fragments come from shared memory by ldmatrix.
+// A block stages its whole chunk, 16 features a stage (32 bytes a row,
+// the two 16-byte halves swizzled by (row >> 2) & 1 so each 8 x 8 matrix
+// hits 8 bank quads), through the same cp.async ring, features past D
+// zero.  Warp w owns the chunk's rows [64 w, 64 w + 64)
+// (four 16-row fragments against every 8-query fragment of the tile) and
+// skips a unit no query of the tile may see.  Norms stay f32 __fmaf_rn
+// chains over the upcast values, once a row a block.  The tile's query
+// count (16, 8 or 4) is the largest that still gives every SM a block: at
+// N = 4,096 (8 chunks) and Q = 100, 4 queries a tile and 200 blocks.  A
+// dead chunk writes its sentinels, as in the f32 tile.
+//
+// int8 tile (rows 4, 6): 32 queries x 64 rows a step, 256 threads each
+// holding a 2 x 4 register block, D streamed through shared memory in
+// stages of 16, four int8 values packed a word, __dp4a sums; a step no query
+// of the tile may see is skipped (its own mask reads, one byte at a time).
+//
+// ADC tiles: the LUTs of a few queries (m K 4 bytes each, 32 KB at m = 32,
+// K = 256) and the chunk's codes (uint8, one contiguous range) sit in
+// shared memory, and each thread scores whole rows.  The TPU's one-hot LUT
+// matmul exists only because the TPU has no lane gather
 // (src/repro/kernels/pq_scan.py); Hopper gathers from shared memory.  In the
 // unified launch the first tiles are exact and the rest ADC, over a query
 // order the wrapper gives (exact queries first), so a block scores only one
 // flavor; the TPU kernel computes both planes and selects.
 //
-// Bound on this card.  Exact: 2 Q N D operations against 4 N D bytes of
-// points, so operations at Q = 100 (0.096 ms at 67 TFLOP/s for N = 250k,
-// D = 128, against 0.038 ms for the bytes).  ADC: m adds per (query, row)
-// against N m code bytes read; bytes at the main-path shapes.  bf16 and
-// int8: the same operations, which the tensor cores would run at 989 and
-// 1,979 TOP/s, so their bound is the 2 or 1 bytes a value of the points
-// (here they run on the SIMT units, int8 four products a __dp4a).  With the
-// select's cost flat in k, what holds the exact tiles back is the scoring:
-// f32 multiply-adds on the SIMT units, bf16 upcast to them, and int8 bytes
-// staged one at a time; tensor-core tiles are the next step.
+// Bound on this card, as chip_smoke.py's _masked_bound reckons it: each
+// row that passes for some query read once (4, 2 or 1 bytes a value), the
+// masks and queries read once, the outputs written once; 2 D operations for
+// each passing (query, row) cell at 67 TFLOP/s for f32 and at the tensor
+// cores' 989 and 1,979 TOP/s for bf16 and int8.  At the phase-2 shape
+// (Q = 100, N = 250k, D = 128, half the rows passing) f32 is bound by its
+// operations, 0.048 ms against 0.038 ms for the bytes; bf16 and int8 are
+// bound by their bytes.  What holds the f32 tile back from its bound is
+// the scoring of every cell of a live unit (masked cells too) and the
+// select; bf16's scoring is a few microseconds, so its select, mask pass
+// and staging are what is left.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,22 +153,52 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CN = 512;  // rows per chunk
-constexpr int TQ = 32;   // exact queries per tile
-constexpr int BN = 64;   // exact rows per register tile
-constexpr int BK = 16;   // feature dims per shared-memory stage
-constexpr int TM = 2;    // register block: TM queries x TN rows
-constexpr int TN = 4;
+constexpr int TQ = 32;   // queries per exact tile (f32, int8), per ADC tile at most
+constexpr int UNIT = 64;             // rows a skip unit
+constexpr int UNITS = CN / UNIT;     // skip units a chunk
+constexpr int MASK_BYTES = CN / 8;   // one mask row's bits over a chunk
 constexpr int SPT = CN / 32;  // keys a lane holds in a chunk's sort
 constexpr int MERGE_WARPS = 16;  // at most: 32 lists a warp, then one warp over the streams
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int ADC_SMEM = 200 * 1024;  // dynamic shared bytes an ADC tile may take
-constexpr int EXACT_SMEM = TQ * CN * 4;  // an exact tile's (TQ, CN) scores
-constexpr int CHUNK_SMEM = ADC_SMEM > EXACT_SMEM ? ADC_SMEM : EXACT_SMEM;
 constexpr int MERGE_SMEM = MAX_SMEM - 1024;  // leaves room for the static arrays
-static_assert((TQ / TM) * (BN / TN) == THREADS, "one register block per thread");
-static_assert(BK % 4 == 0, "int8 stages pack four features a word");
 static_assert((CN & (CN - 1)) == 0 && SPT * 32 == CN, "the chunk sort holds CN keys, a power of two");
 static_assert(MERGE_WARPS <= 32, "the second merge level gives each stream one lane");
+
+// f32 tile: an 8 x 8 register block a thread (8 queries x 8 rows), a warp
+// 32 queries x one 64-row unit, the block the whole chunk; KS features of
+// each staged row a ring stage
+constexpr int F_TM = 8, F_TN = 8;
+constexpr int KS = 16;
+constexpr int RING = 2;                  // stages of the f32 and bf16 rings
+constexpr int F_STAGE = (TQ + CN) * KS;  // floats of one ring stage: query rows, then point rows
+// the ring, and over it once it is spent the (TQ, CN) scores; the row
+// norms; the mask bits
+constexpr int F_RING = RING * F_STAGE > TQ * CN ? RING * F_STAGE : TQ * CN;
+constexpr int F_SMEM = (F_RING + CN) * 4 + TQ * MASK_BYTES;
+static_assert((TQ / F_TM) * (UNIT / F_TN) == 32, "a warp: 32 queries x one 64-row unit");
+// bf16 tile: the whole chunk staged, KS features a stage, warp w on rows
+// [64 w, 64 w + 64)
+constexpr int B_TQ = 16;  // queries a tile at most (the launch takes 16, 8 or 4)
+constexpr int B_STAGE = (B_TQ + CN) * KS;  // bf16 values of one ring stage
+// the ring (2-byte values), and over it the (tq, CN) scores; the row
+// norms; the mask bits
+__host__ __device__ constexpr int bf16_smem(int tq) {
+  return (RING * B_STAGE * 2 > tq * CN * 4 ? RING * B_STAGE * 2 : tq * CN * 4) + CN * 4 + tq * MASK_BYTES;
+}
+static_assert(UNITS == WARPS && 2 * THREADS == CN, "one 64-row unit a warp, two row norms a thread");
+// int8 tile: 32 queries x 64 rows a step, a 2 x 4 register block
+constexpr int BN = 64;   // rows per step
+constexpr int BK = 16;   // feature dims per shared-memory stage
+constexpr int TM = 2;    // register block: TM queries x TN rows
+constexpr int TN = 4;
+constexpr int W8 = BK / 4;  // staged words a row: four int8 features a word
+constexpr int EXACT_SMEM = TQ * CN * 4;  // the int8 tile's (TQ, CN) scores
+static_assert((TQ / TM) * (BN / TN) == THREADS, "one register block per thread");
+static_assert(BK % 4 == 0, "int8 stages pack four features a word");
+constexpr int CHUNK_SMEM = ADC_SMEM;  // every pass-1 kernel's ceiling
+static_assert(F_SMEM <= CHUNK_SMEM && bf16_smem(B_TQ) <= CHUNK_SMEM && EXACT_SMEM <= CHUNK_SMEM,
+              "one fixed ceiling covers every tile");
 
 // element kinds of the exact flavor's queries and points
 constexpr int F32 = 0, BF16 = 1, INT8 = 2;
@@ -136,7 +215,9 @@ struct Args {
   int* part_i;
   int Q, N, D, M, K, metric;
   int n_exact;             // qperm[0, n_exact) score exact, the rest ADC
-  int tiles_exact, tq_adc, chunks, kc;
+  int tiles_exact, tq_exact, tq_adc, chunks, kc;
+  bool vec;                // q and x rows 16-byte aligned: 16-byte copies
+  bool mask_vec;           // mask rows 8-byte aligned: 8-byte mask loads
   float q_scale, x_scale;  // int8: dequantization scales (1 otherwise)
 };
 
@@ -179,60 +260,32 @@ __device__ __forceinline__ uint64_t warp_min(uint64_t key) {
   return (static_cast<uint64_t>(mh) << 32) | ml;
 }
 
-// One element as f32: bf16 upcast (exact), int8 dequantized (x * scale)
-template <int KIND>
-__device__ __forceinline__ float elem(const void* base, size_t i, float scale) {
-  if constexpr (KIND == F32) return static_cast<const float*>(base)[i];
-  else if constexpr (KIND == BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
-  else return __fmul_rn(static_cast<float>(static_cast<const int8_t*>(base)[i]), scale);
-}
 
-// |v|^2 of row ``row`` as one fused multiply-add chain in feature order,
-// over the f32 values of elem
-template <int KIND>
-__device__ __forceinline__ float sq_norm(const void* base, size_t row, int D, float scale) {
+// |v|^2 of int8 row ``row``: one fused multiply-add chain in feature
+// order over the dequantized values (v * scale)
+__device__ __forceinline__ float sq_norm_int8(const void* base, size_t row, int D, float scale) {
+  const int8_t* p = static_cast<const int8_t*>(base) + row * D;
   float s = 0.f;
   for (int d = 0; d < D; ++d) {
-    const float v = elem<KIND>(base, row * D + d, scale);
+    const float v = __fmul_rn(static_cast<float>(p[d]), scale);
     s = __fmaf_rn(v, v, s);
   }
   return s;
 }
 
-// A stage holds BK features a row: f32 values for f32 and bf16, four
-// int8 values packed in a word for int8 (features past D load as zeros).
-template <int KIND> struct Stage {
-  using T = float;   // staged word
-  using Acc = float; // cross-product accumulator
-  static constexpr int W = BK;
-};
-template <> struct Stage<INT8> {
-  using T = int;
-  using Acc = int;
-  static constexpr int W = BK / 4;
-};
-
-// the staged word of features [gk, gk + 4) (int8) or gk (else) of one row
-template <int KIND>
-__device__ __forceinline__ typename Stage<KIND>::T load_word(const void* base, size_t row, int D,
-                                                             int gk, bool valid) {
-  if constexpr (KIND == INT8) {
-    const int8_t* p = static_cast<const int8_t*>(base) + row * D;
-    unsigned w = 0;
+// the int8 tile's staged word: features [gk, gk + 4) of one row, packed
+// (features past D load as zeros)
+__device__ __forceinline__ int load_word(const void* base, size_t row, int D, int gk, bool valid) {
+  const int8_t* p = static_cast<const int8_t*>(base) + row * D;
+  unsigned w = 0;
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (valid && gk + b < D) w |= (static_cast<unsigned>(static_cast<uint8_t>(p[gk + b])) << (8 * b));
-    return static_cast<int>(w);
-  } else {
-    return valid && gk < D ? elem<KIND>(base, row * D + gk, 1.f) : 0.f;
-  }
+  for (int b = 0; b < 4; ++b)
+    if (valid && gk + b < D) w |= (static_cast<unsigned>(static_cast<uint8_t>(p[gk + b])) << (8 * b));
+  return static_cast<int>(w);
 }
 
-__device__ __forceinline__ float mac(float a, float b, float acc) { return __fmaf_rn(a, b, acc); }
-__device__ __forceinline__ int mac(int a, int b, int acc) { return __dp4a(a, b, acc); }
-
-// add the squares of one staged word's f32 values to a norm, feature order
-__device__ __forceinline__ float norm_add(float v, float s, float) { return __fmaf_rn(v, v, s); }
+// add the squares of one staged int8 word's dequantized values to a norm,
+// feature order
 __device__ __forceinline__ float norm_add(int w, float s, float scale) {
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
@@ -240,12 +293,6 @@ __device__ __forceinline__ float norm_add(int w, float s, float scale) {
     s = __fmaf_rn(v, v, s);
   }
   return s;
-}
-
-// the cross product as f32: int8 sums are scaled once, after the sum
-__device__ __forceinline__ float cross_f32(float acc, float) { return acc; }
-__device__ __forceinline__ float cross_f32(int acc, float qx) {
-  return __fmul_rn(static_cast<float>(acc), qx);
 }
 
 // the expanded-form score from the chain sums
@@ -368,14 +415,481 @@ __device__ void chunk_select(float* dist, int rows, int kc, int row0, float* out
   else sort_compacted<8>(buf, live, kc, row0, out_d, out_i);
 }
 
-template <int KIND>
-__device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
-  using T = typename Stage<KIND>::T;
-  using Acc = typename Stage<KIND>::Acc;
-  constexpr int W = Stage<KIND>::W;
-  constexpr int PER = BK / W;  // features per staged word
-  __shared__ T As[W][TQ + 1];
-  __shared__ T Bs[W][BN + 1];
+
+// cp.async copies of 16 or 4 bytes, of which the first src_bytes are read
+// and the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// Feeds a ring of RING stages: stage(buf, k0) starts the copies of the
+// features [k0, k0 + W) into buffer buf and commits them; body(buf) runs
+// once a stage has landed, with the next RING - 1 stages' copies in flight.
+// When it returns every copy has landed (the buffers may be reused).
+template <int W, typename Stage, typename Body>
+__device__ __forceinline__ void ring(int D, Stage stage, Body body) {
+  const int stages = (D + W - 1) / W;
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < stages) stage(s, s * W);
+    else cp_async_commit();  // an empty group keeps the count
+  }
+  for (int s = 0; s < stages; ++s) {
+    const int next = s + RING - 1;
+    if (next < stages) stage(next % RING, next * W);
+    else cp_async_commit();
+    cp_async_wait<RING - 1>();  // stage s's group has landed
+    __syncthreads();
+    body(s % RING);
+    __syncthreads();
+  }
+}
+
+// Query side of a tile, shared by the f32 and bf16 tiles: each query's id,
+// its slot (the first query of the tile with the same mask row) and its
+// |q|^2 (summed from the staged rows), and the bits of every distinct mask
+// row over the chunk's rows [row0, row0 + rows): each row's bytes read
+// once, 8 at a time where rows are 8-byte aligned; bits past ``rows`` are
+// 0.  Then live[u]: some query of the tile may see a row of unit u (warp u
+// looks, one 8-byte read of the unit's bits a query).
+struct TileQueries {
+  int qid[TQ];
+  int slot[TQ];
+  float q2[TQ];
+  bool live[UNITS];
+};
+
+__device__ void tile_setup(const Args& a, TileQueries& t, uint8_t* bits, int first, int nq,
+                           int row0, int rows) {
+  __shared__ int mrow[TQ];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < nq) {
+    const int qid = a.qperm ? a.qperm[first + tid] : first + tid;
+    t.qid[tid] = qid;
+    mrow[tid] = a.mask_row ? a.mask_row[qid] : 0;
+  }
+  __syncthreads();
+  if (tid < nq) {
+    int s = 0;
+    while (mrow[s] != mrow[tid]) ++s;
+    t.slot[tid] = s;
+  }
+  __syncthreads();
+  for (int e = tid; e < nq * MASK_BYTES; e += THREADS) {
+    const int i = e / MASK_BYTES, w = e % MASK_BYTES, r = 8 * w;
+    if (t.slot[i] != i) continue;
+    const uint8_t* m = a.mask + (size_t)mrow[i] * a.N + row0 + r;
+    unsigned b = 0;
+    if (a.mask_vec && r < rows) {  // rows is a multiple of 8 here
+      const uint2 v = *reinterpret_cast<const uint2*>(m);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b |= ((v.x >> (8 * j)) & 0xffu ? 1u : 0u) << j;
+        b |= ((v.y >> (8 * j)) & 0xffu ? 1u : 0u) << (4 + j);
+      }
+    } else {
+      for (int j = 0; j < 8 && r + j < rows; ++j) b |= (m[j] ? 1u : 0u) << j;
+    }
+    bits[i * MASK_BYTES + w] = static_cast<uint8_t>(b);
+  }
+  __syncthreads();
+  const int q = lane;
+  const bool any = q < nq && *reinterpret_cast<const uint64_t*>(bits + t.slot[q] * MASK_BYTES + 8 * warp);
+  const bool l = __any_sync(FULL, any);
+  if (lane == 0) t.live[warp] = l;
+  __syncthreads();
+}
+
+// the 64 bits of query q's mask over unit u (bit 8 j + i: row 64 u + 8 j + i)
+__device__ __forceinline__ uint64_t unit_bits(const TileQueries& t, const uint8_t* bits, int q, int u) {
+  return *reinterpret_cast<const uint64_t*>(bits + t.slot[q] * MASK_BYTES + 8 * u);
+}
+
+// a chunk no query of the tile may see: every query's kc slots are
+// sentinels, as chunk_select writes them for a chunk with no live key
+__device__ void dead_chunk(const Args& a, const TileQueries& t, int nq, int chunk) {
+  const int lane = threadIdx.x & 31;
+  for (int qi = threadIdx.x >> 5; qi < nq; qi += WARPS) {
+    const size_t base = ((size_t)t.qid[qi] * a.chunks + chunk) * a.kc;
+    for (int s = lane; s < a.kc; s += 32) {
+      a.part_d[base + s] = CUDART_INF_F;
+      a.part_i[base + s] = -1;
+    }
+  }
+}
+
+// f32 staged point row r, quad c (features 4 c .. 4 c + 3 of the stage):
+// the four quads of a row swizzled by (r >> 1) & 3, so 8 consecutive rows'
+// pair of features lie in 8 different bank pairs; a query row's by
+// (r >> 1) & 1, enough for the 4 consecutive ones a warp reads.
+__device__ __forceinline__ int f_swz(int r, int c) { return r * KS + ((c ^ ((r >> 1) & 3)) << 2); }
+__device__ __forceinline__ int q_swz(int r, int c) { return r * KS + ((c ^ ((r >> 1) & 1)) << 2); }
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
+  acc = __fmaf_rn(a.x, b.x, acc);
+  acc = __fmaf_rn(a.y, b.y, acc);
+  acc = __fmaf_rn(a.z, b.z, acc);
+  acc = __fmaf_rn(a.w, b.w, acc);
+}
+
+// The f32 tile's multiply-adds over one staged stage: lane (tx, ty) =
+// (lane & 7, lane >> 3) of warp w holds queries ty + 4 i (i < TMA) x rows
+// 64 w + tx + 8 j (j < 8), feature pairs read by 64-bit shared loads in
+// order.  TMA < 8 when the tile's queries end early (the last tile).
+template <int TMA>
+__device__ __forceinline__ void f32_multiply(const float* Qs, const float* Xs, int tx, int ty, int w,
+                                             float (&acc)[F_TM][F_TN]) {
+  const float* qr = Qs + ty * KS;
+  const float* xr = Xs + (UNIT * w + tx) * KS;
+  const int sx = (tx >> 1) & 3, sq = (ty >> 1) & 1;  // the swizzles of the rows this lane reads
+  // one feature pair an iteration, not unrolled: the 64 sums and one
+  // pair's 16 loads fit the 128 registers two blocks an SM leave a thread
+#pragma unroll 1
+  for (int p = 0; p < KS / 2; ++p) {
+    const int qc = 4 * ((p >> 1) ^ sq) + 2 * (p & 1);
+    const int xc = 4 * ((p >> 1) ^ sx) + 2 * (p & 1);
+    float2 av[TMA];
+#pragma unroll
+    for (int i = 0; i < TMA; ++i) av[i] = *reinterpret_cast<const float2*>(qr + 4 * i * KS + qc);
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(xr + 8 * j * KS + xc);
+#pragma unroll
+      for (int i = 0; i < TMA; ++i) {
+        acc[i][j] = __fmaf_rn(av[i].x, b.x, acc[i][j]);
+        acc[i][j] = __fmaf_rn(av[i].y, b.y, acc[i][j]);
+      }
+    }
+  }
+}
+
+// f32 tile (see the header).  Dynamic shared memory: the ring (the
+// (TQ, CN) scores over it once it is spent), the chunk's row norms, the
+// mask bits.
+__device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
+  float* ringb = smem;                          // [RING][TQ + CN][KS]
+  float* dist = smem;                           // [TQ][CN], once the ring is spent
+  float* x2s = smem + F_RING;                   // [CN]
+  uint8_t* bits = reinterpret_cast<uint8_t*>(x2s + CN);  // [TQ][MASK_BYTES]
+  __shared__ TileQueries tq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int first = tile * TQ;
+  const int nq = min(TQ, a.n_exact - first);
+  const int row0 = chunk * CN;
+  const int rows = min(CN, a.N - row0);
+  tile_setup(a, tq, bits, first, nq, row0, rows);
+  bool any = false;
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u) any = any || tq.live[u];
+  if (!any) {
+    dead_chunk(a, tq, nq, chunk);
+    return;
+  }
+  const float* qb = static_cast<const float*>(a.q);
+  const float* xb = static_cast<const float*>(a.x);
+  const int D = a.D;
+  const int tx = lane & 7, ty = lane >> 3;
+  // copies (16-byte path): quad h = tid & 1 of query row tid >> 1 and of
+  // point rows (tid >> 1) + 128 i; rows past N or in a unit no query may
+  // see are zero-filled (row index -1)
+  const int h = tid & 3;
+  const int qrow = tid < 4 * TQ && (tid >> 2) < nq ? tq.qid[tid >> 2] : -1;
+  const bool wlive = tq.live[warp];
+  const bool nlive[2] = {tq.live[tid / UNIT], tq.live[(tid + THREADS) / UNIT]};
+  float xn[2] = {0.f, 0.f};  // |x|^2 of rows tid and tid + 256
+  float qn = 0.f;            // |q|^2 of query tid (tid < nq)
+  const int tma = nq > 16 ? 8 : nq > 8 ? 4 : nq > 4 ? 2 : 1;
+  float acc[F_TM][F_TN];
+#pragma unroll
+  for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
+  auto stage = [&](int buf, int k0) {
+    float* Qs = ringb + buf * F_STAGE;
+    float* Xs = Qs + TQ * KS;
+    if (a.vec) {
+      const bool in_d = k0 + 4 * h < D;
+      if (tid < 4 * TQ) {
+        const bool ok = qrow >= 0 && in_d;
+        cp_async16(Qs + q_swz(tid >> 2, h), ok ? qb + (size_t)qrow * D + k0 + 4 * h : qb, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < UNITS; ++i) {
+        const int r = row0 + (tid >> 2) + UNIT * i;
+        const bool ok = tq.live[i] && r < a.N && in_d;
+        cp_async16(Xs + f_swz((tid >> 2) + UNIT * i, h), ok ? xb + (size_t)r * D + k0 + 4 * h : xb, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < (TQ + CN) * KS; e += THREADS) {
+        const int r = e / KS, f = e % KS, k = k0 + f;
+        const float* src = nullptr;
+        float* dst;
+        if (r < TQ) {
+          dst = Qs + q_swz(r, f >> 2) + (f & 3);
+          if (r < nq && k < D) src = qb + (size_t)tq.qid[r] * D + k;
+        } else {
+          const int rr = r - TQ, g = row0 + rr;
+          dst = Xs + f_swz(rr, f >> 2) + (f & 3);
+          if (tq.live[rr / UNIT] && g < a.N && k < D) src = xb + (size_t)g * D + k;
+        }
+        cp_async4(dst, src ? src : qb, src ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  ring<KS>(D, stage, [&](int buf) {
+    const float* Qs = ringb + buf * F_STAGE;
+    const float* Xs = Qs + TQ * KS;
+    // norms: one fused chain a row in feature order (zeros past D leave it)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!nlive[i]) continue;
+      const int r = tid + THREADS * i;
+#pragma unroll
+      for (int c = 0; c < KS / 4; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(Xs + f_swz(r, c));
+        fma4(xn[i], v, v);
+      }
+    }
+    if (tid < nq) {
+#pragma unroll
+      for (int c = 0; c < KS / 4; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(Qs + q_swz(tid, c));
+        fma4(qn, v, v);
+      }
+    }
+    if (!wlive) return;
+    if (tma == 8) f32_multiply<8>(Qs, Xs, tx, ty, warp, acc);
+    else if (tma == 4) f32_multiply<4>(Qs, Xs, tx, ty, warp, acc);
+    else if (tma == 2) f32_multiply<2>(Qs, Xs, tx, ty, warp, acc);
+    else f32_multiply<1>(Qs, Xs, tx, ty, warp, acc);
+  });
+  x2s[tid] = xn[0];
+  x2s[tid + THREADS] = xn[1];
+  if (tid < nq) tq.q2[tid] = qn;
+  __syncthreads();
+  // masked cells (every cell of a unit the warp skipped) are +inf
+#pragma unroll
+  for (int i = 0; i < F_TM; ++i) {
+    const int q = ty + 4 * i;
+    if (q >= nq) continue;
+    const uint64_t mb = unit_bits(tq, bits, q, warp) >> tx;
+    const float q2 = tq.q2[q];
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) {
+      const int row = UNIT * warp + tx + 8 * j;
+      if (row >= rows) continue;
+      dist[q * CN + row] = (mb >> (8 * j)) & 1 ? exact_score(q2, acc[i][j], x2s[row], a.metric) : CUDART_INF_F;
+    }
+  }
+  __syncthreads();
+  for (int qi = warp; qi < nq; qi += WARPS) {
+    const size_t base = ((size_t)tq.qid[qi] * a.chunks + chunk) * a.kc;
+    chunk_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
+  }
+}
+
+// bf16 staged row r, 16-byte half h (features 8 h .. 8 h + 7), in bf16
+// values: the halves of a row swizzled by (r >> 2) & 1, so an 8 x 8
+// matrix's 8 rows lie in 8 different bank quads
+__device__ __forceinline__ int b_swz(int r, int h) { return r * KS + ((h ^ ((r >> 2) & 1)) << 3); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 bf16 fragment (rows = points), b 16 x 8 (columns =
+// queries), f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// adds the squares of 8 staged bf16 values (one 16-byte half), upcast, to a
+// norm in feature order
+__device__ __forceinline__ float norm8_bf16(const __nv_bfloat16* p, float s) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xffff0000u);
+    s = __fmaf_rn(lo, lo, s);
+    s = __fmaf_rn(hi, hi, s);
+  }
+  return s;
+}
+
+constexpr int B_MT = UNIT / 16;  // 16-row fragments a warp
+constexpr int B_NT = B_TQ / 8;   // 8-query fragments at most
+
+// bf16 tile (see the header).  Dynamic shared memory: the ring (the
+// (tq, CN) scores over it once it is spent), the chunk's row norms, the
+// mask bits.
+__device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
+  __nv_bfloat16* ringb = reinterpret_cast<__nv_bfloat16*>(smem);  // [RING][B_TQ + CN][KS]
+  const int tqn = a.tq_exact;
+  float* dist = smem;                           // [tq][CN], once the ring is spent
+  float* x2s = smem + (bf16_smem(tqn) - CN * 4 - tqn * MASK_BYTES) / 4;  // [CN]
+  uint8_t* bits = reinterpret_cast<uint8_t*>(x2s + CN);  // [tq][MASK_BYTES]
+  __shared__ TileQueries tq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int first = tile * tqn;
+  const int nq = min(tqn, a.n_exact - first);
+  const int row0 = chunk * CN;
+  const int rows = min(CN, a.N - row0);
+  tile_setup(a, tq, bits, first, nq, row0, rows);
+  bool any = false;
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u) any = any || tq.live[u];
+  if (!any) {
+    dead_chunk(a, tq, nq, chunk);
+    return;
+  }
+  const int ntiles = (nq + 7) / 8;
+  float acc[B_MT][B_NT][4];
+#pragma unroll
+  for (int m = 0; m < B_MT; ++m)
+#pragma unroll
+    for (int n = 0; n < B_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x);
+  const int D = a.D;
+  // copies (16-byte path): half tid & 1 of query row tid >> 1 and of point
+  // rows (tid >> 1) + 128 i; rows past N or in a unit no query may see are
+  // zero-filled (row index -1)
+  const int h = tid & 1;
+  const int qrow = tid < 2 * B_TQ && (tid >> 1) < nq ? tq.qid[tid >> 1] : -1;
+  int xrow[CN / 128];
+#pragma unroll
+  for (int i = 0; i < CN / 128; ++i) {
+    const int r = (tid >> 1) + 128 * i;
+    xrow[i] = tq.live[r / UNIT] && row0 + r < a.N ? row0 + r : -1;
+  }
+  const bool wlive = tq.live[warp];
+  const bool nlive[2] = {tq.live[tid / UNIT], tq.live[(tid + THREADS) / UNIT]};
+  float xn[2] = {0.f, 0.f};  // norms of rows tid and tid + 256
+  float qn = 0.f;            // norm of query tid (tid < nq)
+  auto stage = [&](int buf, int k0) {
+    __nv_bfloat16* Qs = ringb + buf * B_STAGE;
+    __nv_bfloat16* Xs = Qs + B_TQ * KS;
+    if (a.vec) {
+      const bool in_d = k0 + 8 * h < D;
+      if (tid < 2 * B_TQ) {
+        const bool ok = qrow >= 0 && in_d;
+        cp_async16(Qs + b_swz(tid >> 1, h), ok ? qb + (size_t)qrow * D + k0 + 8 * h : qb, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < CN / 128; ++i) {
+        const bool ok = xrow[i] >= 0 && in_d;
+        cp_async16(Xs + b_swz((tid >> 1) + 128 * i, h), ok ? xb + (size_t)xrow[i] * D + k0 + 8 * h : xb,
+                   ok ? 16 : 0);
+      }
+    } else {
+      // rows of odd length: element loads, stored as they arrive
+      for (int e = tid; e < (B_TQ + CN) * KS; e += THREADS) {
+        const int r = e / KS, f = e % KS, k = k0 + f;
+        __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+        if (r < B_TQ) {
+          if (r < nq && k < D) v = qb[(size_t)tq.qid[r] * D + k];
+        } else {
+          const int rr = r - B_TQ;
+          if (tq.live[rr / UNIT] && row0 + rr < a.N && k < D) v = xb[(size_t)(row0 + rr) * D + k];
+        }
+        Qs[b_swz(r, f >> 3) + (f & 7)] = v;
+      }
+    }
+    cp_async_commit();
+  };
+  ring<KS>(D, stage, [&](int buf) {
+    const __nv_bfloat16* Qs = ringb + buf * B_STAGE;
+    const __nv_bfloat16* Xs = Qs + B_TQ * KS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!nlive[i]) continue;
+      const int r = tid + THREADS * i;
+      xn[i] = norm8_bf16(Xs + b_swz(r, 0), xn[i]);
+      xn[i] = norm8_bf16(Xs + b_swz(r, 1), xn[i]);
+    }
+    if (tid < nq) {
+      qn = norm8_bf16(Qs + b_swz(tid, 0), qn);
+      qn = norm8_bf16(Qs + b_swz(tid, 1), qn);
+    }
+    if (!wlive) return;
+    unsigned bq[B_NT][2];
+#pragma unroll
+    for (int n = 0; n < B_NT; ++n)
+      if (n < ntiles) ldmatrix_x2(bq[n], Qs + b_swz(8 * n + (lane & 7), (lane >> 3) & 1));
+#pragma unroll
+    for (int m = 0; m < B_MT; ++m) {
+      unsigned ax[4];
+      ldmatrix_x4(ax, Xs + b_swz(UNIT * warp + 16 * m + (lane & 15), lane >> 4));
+#pragma unroll
+      for (int n = 0; n < B_NT; ++n)
+        if (n < ntiles) mma_bf16(acc[m][n], ax, bq[n]);
+    }
+  });
+  x2s[tid] = xn[0];
+  x2s[tid + THREADS] = xn[1];
+  if (tid < nq) tq.q2[tid] = qn;
+  __syncthreads();
+  // lane (g, t) = (lane >> 2, lane & 3) holds rows g, g + 8 of each
+  // fragment against queries 2 t, 2 t + 1; masked cells are +inf
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < B_NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int q = 8 * n + 2 * t4 + c;
+      if (q >= nq) continue;
+      const uint64_t mb = unit_bits(tq, bits, q, warp) >> g;
+      const float q2 = tq.q2[q];
+#pragma unroll
+      for (int m = 0; m < B_MT; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = UNIT * warp + 16 * m + g + 8 * hh;
+          if (row >= rows) continue;
+          dist[q * CN + row] = (mb >> (8 * (2 * m + hh))) & 1
+              ? exact_score(q2, acc[m][n][2 * hh + c], x2s[row], a.metric) : CUDART_INF_F;
+        }
+    }
+  __syncthreads();
+  for (int qi = warp; qi < nq; qi += WARPS) {
+    const size_t base = ((size_t)tq.qid[qi] * a.chunks + chunk) * a.kc;
+    chunk_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
+  }
+}
+
+// int8 tile: 2 x 4 register blocks of __dp4a
+// sums over words of four int8 features, staged a word at a time
+__device__ void int8_tile(const Args& a, float* dist, int tile, int chunk) {
+  __shared__ int As[W8][TQ + 1];
+  __shared__ int Bs[W8][BN + 1];
   __shared__ float q2s[TQ];
   __shared__ float x2s[BN];
   __shared__ int qids[TQ];
@@ -387,13 +901,13 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
   const int nq = min(TQ, a.n_exact - first);
   const int row0 = chunk * CN;
   const int rows = min(CN, a.N - row0);
-  // int8: scale the int32 cross once; the product rounds as the reference's
+  // scale the int32 cross once; the product rounds as the reference's
   const float qx = __fmul_rn(a.q_scale, a.x_scale);
   if (tid < TQ) {
     const int qid = tid < nq ? (a.qperm ? a.qperm[first + tid] : first + tid) : -1;
     qids[tid] = qid;
     mrow[tid] = qid >= 0 && a.mask_row ? a.mask_row[qid] : 0;
-    q2s[tid] = qid >= 0 ? sq_norm<KIND>(a.q, qid, a.D, a.q_scale) : 0.f;
+    q2s[tid] = qid >= 0 ? sq_norm_int8(a.q, qid, a.D, a.q_scale) : 0.f;
   }
   __syncthreads();
   for (int sub = 0; sub < rows; sub += BN) {
@@ -411,30 +925,30 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
       __syncthreads();
       continue;
     }
-    Acc acc[TM][TN];
+    int acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0;
     float xn = 0.f;
     for (int k0 = 0; k0 < a.D; k0 += BK) {
-      for (int e = tid; e < TQ * W; e += THREADS) {
-        const int i = e / W, kk = e % W, qid = qids[i];
-        As[kk][i] = load_word<KIND>(a.q, qid < 0 ? 0 : qid, a.D, k0 + kk * PER, qid >= 0);
+      for (int e = tid; e < TQ * W8; e += THREADS) {
+        const int i = e / W8, kk = e % W8, qid = qids[i];
+        As[kk][i] = load_word(a.q, qid < 0 ? 0 : qid, a.D, k0 + kk * 4, qid >= 0);
       }
-      for (int e = tid; e < BN * W; e += THREADS) {
-        const int j = e / W, kk = e % W;
-        Bs[kk][j] = load_word<KIND>(a.x, (size_t)row0 + sub + j, a.D, k0 + kk * PER, sub + j < rows);
+      for (int e = tid; e < BN * W8; e += THREADS) {
+        const int j = e / W8, kk = e % W8;
+        Bs[kk][j] = load_word(a.x, (size_t)row0 + sub + j, a.D, k0 + kk * 4, sub + j < rows);
       }
       __syncthreads();
       // features past D load as zeros, and a zero product leaves a sum as it is
       if (tid < BN) {
 #pragma unroll
-        for (int kk = 0; kk < W; ++kk) xn = norm_add(Bs[kk][tid], xn, a.x_scale);
+        for (int kk = 0; kk < W8; ++kk) xn = norm_add(Bs[kk][tid], xn, a.x_scale);
       }
 #pragma unroll
-      for (int kk = 0; kk < W; ++kk) {
-        T av[TM], bv[TN];
+      for (int kk = 0; kk < W8; ++kk) {
+        int av[TM], bv[TN];
 #pragma unroll
         for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
 #pragma unroll
@@ -442,7 +956,7 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
       }
       __syncthreads();
     }
@@ -458,7 +972,7 @@ __device__ void exact_tile(const Args& a, float* dist, int tile, int chunk) {
         const int r = sub + tx * TN + j;
         if (r >= rows) continue;
         dist[qi * CN + r] = m[row0 + r]
-            ? exact_score(q2s[qi], cross_f32(acc[i][j], qx), x2s[tx * TN + j], a.metric)
+            ? exact_score(q2s[qi], __fmul_rn(static_cast<float>(acc[i][j]), qx), x2s[tx * TN + j], a.metric)
             : CUDART_INF_F;
       }
     }
@@ -509,16 +1023,23 @@ __device__ void adc_tile(const Args& a, float* smem, int tile, int chunk) {
 }
 
 // KIND is the exact flavor's element kind; launches with ADC queries (f32
-// only) take the ADC form.  An exact-only launch fits three blocks an SM
-// (EXACT_SMEM each) and is held to their 80 registers; an ADC tile's shared
-// memory leaves room for one block, which may take all the registers it
-// wants (A/B on the H100 in PERF.md).
+// only) take the ADC form.  The int8 tile (EXACT_SMEM) fits three blocks an
+// SM and is held to their 80 registers; the f32 and bf16 tiles (74 KB of
+// shared memory at most) are held to 128 registers, two blocks an SM (the
+// f32 tile's 64 sums need them); an ADC tile's
+// shared memory leaves room for one block, which may take all the registers
+// it wants (A/B on the H100 in PERF.md).
 template <int KIND, bool ADC>
-__global__ void __launch_bounds__(THREADS, ADC ? 1 : 3) chunk_topk_kernel(Args a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(THREADS, ADC ? 1 : KIND == INT8 ? 3 : 2) chunk_topk_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x;
-  if (tile < a.tiles_exact) exact_tile<KIND>(a, smem, tile, blockIdx.y);
-  else if constexpr (ADC) adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
+  if (tile < a.tiles_exact) {
+    if constexpr (KIND == F32) f32_tile(a, smem, tile, blockIdx.y);
+    else if constexpr (KIND == BF16) bf16_tile(a, smem, tile, blockIdx.y);
+    else int8_tile(a, smem, tile, blockIdx.y);
+  } else if constexpr (ADC) {
+    adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
+  }
 }
 
 // Pass 2: one block of ``warps`` warps per query.  Level 1: lane g of the
@@ -644,9 +1165,29 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   a.Q = Q; a.N = N; a.D = D; a.M = M; a.K = K; a.metric = metric; a.n_exact = n_exact;
   a.chunks = (N + CN - 1) / CN;
   a.kc = k < CN ? k : CN;
-  a.tiles_exact = (n_exact + TQ - 1) / TQ;
+  // 16-byte copies where every row starts 16-byte aligned (4 f32 or 8 bf16
+  // values); 8-byte mask loads where every mask row starts 8-byte aligned
+  const int per16 = kind == BF16 ? 8 : 4;
+  a.vec = D % per16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.mask_vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(mask) % 8 == 0;
+  // bf16 queries a tile: the largest of 16, 8, 4 that still gives every SM
+  // a block (N = 4,096, Q = 100: 4, 200 blocks)
+  a.tq_exact = TQ;
+  if (kind == BF16) {
+    a.tq_exact = B_TQ;
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    while (a.tq_exact > 4 && (long long)((n_exact + a.tq_exact - 1) / a.tq_exact) * a.chunks < sms)
+      a.tq_exact /= 2;
+  }
+  a.tiles_exact = (n_exact + a.tq_exact - 1) / a.tq_exact;
   const int n_adc = Q - n_exact;
-  size_t smem = a.tiles_exact > 0 ? (size_t)EXACT_SMEM : 0;
+  size_t smem = 0;
+  if (a.tiles_exact > 0)
+    smem = kind == F32 ? (size_t)F_SMEM : kind == BF16 ? (size_t)bf16_smem(a.tq_exact) : (size_t)EXACT_SMEM;
   a.tq_adc = 1;
   int tiles_adc = 0;
   if (n_adc > 0) {

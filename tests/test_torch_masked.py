@@ -466,3 +466,116 @@ def test_cuda_select_gaps_and_signed_zeros_match_plain(cuda, case, k, metric):
             for row, passing in zip(got[name][1][[0, 2]].tolist(), masks):
                 want = np.flatnonzero(passing)[:k].tolist()
                 assert row == want + [-1] * (k - len(want)), name
+
+
+# -- the f32 tile's shapes (card only) ------------------------------------------
+# The f32 tile scores 32 queries x 256 rows a step (two 16-query halves x
+# four 64-row units, one warp each) in 512-row chunks; a unit no query of a
+# half may see is not scored, and one no query of the tile may see is not
+# staged.
+
+
+def _unit_mask(q, n, rng, shift=True):
+    """(Q, N) bool: by 64-row unit u (shifted by the query index when
+    ``shift``), every row passes (u % 3 == 0), none (1) or one in ten (2),
+    so some units are live for some queries of a tile and dead for others."""
+    u = np.arange(n)[None, :] // 64 + (np.arange(q)[:, None] if shift else 0)
+    sparse = rng.random((q, n)) < 0.1
+    return np.where(u % 3 == 0, True, np.where(u % 3 == 1, False, sparse))
+
+
+def _assert_topk_near_ties(got, want_next, atol, rtol=1e-5):
+    """Kernel (dists, ids) against the plain version's top-(k + 1) on the
+    card: distances within tolerance, the same (+inf, -1) sentinels, and
+    ids equal except where the plain version's distance ties within the
+    tolerance with a neighbouring slot, slot k (the first row left out)
+    included.  The kernel's fused chains and the plain version's matrix
+    product round apart by a few ulps, so rows that near-tie may swap."""
+    gd, gi = (np.asarray(a) for a in got)
+    nd, ni = (np.asarray(a) for a in want_next)
+    k = gd.shape[1]
+    wd, wi = nd[:, :k], ni[:, :k]
+    np.testing.assert_array_equal(np.isinf(gd), np.isinf(wd))
+    assert ((gi < 0) == np.isinf(gd)).all()
+    fin = np.isfinite(wd)
+    np.testing.assert_allclose(gd[fin], wd[fin], rtol=rtol, atol=atol)
+    d = np.where(np.isinf(nd), 1e30, nd)
+    step = np.abs(np.diff(d, axis=1))
+    gap = np.full(d.shape, np.inf)
+    gap[:, 1:] = step
+    gap_r = np.full(d.shape, np.inf)
+    gap_r[:, :-1] = step
+    tied = (np.minimum(gap, gap_r) <= atol + rtol * np.abs(d))[:, :k]
+    bad = (gi != wi) & ~tied
+    assert not bad.any(), f"{int(bad.sum())} ids differ outside ties"
+
+
+TILE_Q = [1, 8, 100, 129]
+TILE_D = [8, 33, 128]
+TILE_N = [64, 65, 1000, 1300]
+
+
+@pytest.mark.parametrize("q", TILE_Q)
+@pytest.mark.parametrize("d", TILE_D)
+@pytest.mark.parametrize("n", TILE_N)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_f32_tile_matches_plain(cuda, q, d, n, metric):
+    """Q either side of the 32-query tile and its 16-query halves, D below
+    and past the 16-feature stage (unaligned at 33), N either side of the
+    64-row unit and the 512-row chunk; a row mask, the dense plane and the
+    dedup'd plane, units full, empty and sparse; k from 1 to past the
+    chunk: ids equal to the plain version's, distances within tolerance."""
+    rng = np.random.default_rng(q * 7919 + d * 31 + n)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    plane = _unit_mask(q, n, rng)
+    row = _unit_mask(1, n, rng, shift=False)[0]
+    unique, idx = _dedup(plane, q + n)
+    qq, x, m, p, u, i = _on(cuda, Q, X, row, plane, unique, idx)
+    for k in (1, 40, 160, 600):
+        for fn, args in ((ops.masked_exact_topk, (qq, x, m)), (ops.masked_exact_topk_multi, (qq, x, p)),
+                         (ops.masked_exact_topk_dedup, (qq, x, u, i))):
+            got = fn(*args, k, metric=metric)
+            want = fn(*args, k + 1, metric=metric, backend="ref")
+            torch.cuda.synchronize()
+            _assert_topk_near_ties([a.cpu() for a in got], [a.cpu() for a in want], _atol(Q, X))
+
+
+@pytest.mark.parametrize("q", TILE_Q)
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_cuda_f32_tile_unified_equals_split(cuda, q, n):
+    """The unified launch's exact tiles are the f32 tile: each exact row of
+    a mixed-flavor call has the split kernel's bits, under unit masks."""
+    rng = np.random.default_rng(q + n)
+    Q = rng.normal(size=(q, 128)).astype(np.float32)
+    X = rng.normal(size=(n, 128)).astype(np.float32)
+    luts = rng.normal(size=(q, M_SUB, K_CODE)).astype(np.float32)
+    codes = rng.integers(0, K_CODE, size=(n, M_SUB)).astype(np.uint8)
+    plane = _unit_mask(q, n, rng)
+    qq, x, lt, c, p, f = _on(cuda, Q, X, luts, codes, plane, _flavors(q, "mixed"))
+    rows = torch.arange(q, dtype=torch.int32, device=cuda)
+    for k in (1, 40, 160):
+        got = ops.unified_masked_topk(qq, x, lt, c, p, f, k)
+        ex = kmasked.masked_exact_topk(qq, x, p.to(torch.uint8), rows, k)
+        pq = kmasked.masked_pq_topk(lt, c, p.to(torch.uint8), rows, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], torch.where(f[:, None], pq[0], ex[0]))
+        assert torch.equal(got[1], torch.where(f[:, None], pq[1], ex[1]))
+
+
+def test_cuda_f32_tile_unaligned_mask_rows(cuda):
+    """N = 1,001 (mask rows not 8-byte aligned: the byte-at-a-time mask
+    reads) and points at an odd offset (4-byte copies)."""
+    rng = np.random.default_rng(11)
+    Q = rng.normal(size=(40, 64)).astype(np.float32)
+    X = rng.normal(size=(1001, 64)).astype(np.float32)
+    plane = _unit_mask(40, 1001, rng)
+    qq, x, p = _on(cuda, Q, X, plane)
+    odd = torch.empty(1001 * 64 + 1, dtype=torch.float32, device=cuda)[1:].view(1001, 64)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16
+    for pts in (x, odd):
+        got = ops.masked_exact_topk_multi(qq, pts, p, 50)
+        want = ops.masked_exact_topk_multi(qq, x, p, 51, backend="ref")
+        torch.cuda.synchronize()
+        _assert_topk_near_ties([a.cpu() for a in got], [a.cpu() for a in want], _atol(Q, X))

@@ -285,19 +285,23 @@ def _on(dev, *arrays):
 def _assert_close_ids(got, want, tol):
     """Distances within ``tol`` (5e-3 relative on top), the same (+inf, -1)
     sentinels, and ids equal except where the plain version's distances tie
-    within the tolerance with a neighbouring slot."""
+    within the tolerance with a neighbouring slot.  ``want`` may hold one
+    slot more than ``got`` (the plain version's top-(k + 1)): a tie of slot
+    k - 1 with the first row left out then lets the ids differ too."""
     gd, gi = (a.cpu() for a in got)
-    wd, wi = (a.cpu() for a in want)
+    nd, ni = (a.cpu() for a in want)
+    k = gd.shape[1]
+    wd, wi = nd[:, :k], ni[:, :k]
     assert torch.equal(torch.isinf(gd), torch.isinf(wd))
     assert torch.equal(gi < 0, torch.isinf(gd))
     fin = torch.isfinite(wd)
     np.testing.assert_allclose(gd[fin].numpy(), wd[fin].numpy(), rtol=1e-5, atol=tol)
-    d = torch.where(fin, wd, torch.full_like(wd, 1e30))
+    d = torch.where(torch.isfinite(nd), nd, torch.full_like(nd, 1e30))
     gap = torch.full_like(d, float("inf"))
     gap[:, 1:] = (d[:, 1:] - d[:, :-1]).abs()
     gap_r = torch.full_like(d, float("inf"))
     gap_r[:, :-1] = (d[:, 1:] - d[:, :-1]).abs()
-    tied = torch.minimum(gap, gap_r) <= tol + 1e-5 * d.abs()
+    tied = (torch.minimum(gap, gap_r) <= tol + 1e-5 * d.abs())[:, :k]
     assert not bool(((gi != wi) & ~tied).any())
 
 
@@ -427,3 +431,48 @@ def test_cuda_quantized_select_edges_match_plain(cuda, case, dtype, metric):
         for qi in tied.get(case, ()):
             passing = np.flatnonzero(masks[qi])[:k].tolist()
             assert got[1][qi].tolist() == passing + [-1] * (k - len(passing)), (fn.__name__, qi)
+
+
+# -- the bf16 tile's shapes (card only) -----------------------------------------
+# The bf16 tile scores on the tensor cores (mma.sync m16n8k16): a warp a
+# 64-row unit of a 512-row chunk against every 8-query fragment of a tile
+# of 4 to 32 queries (the launch picks it from Q and N), features
+# zero-padded to the next 16; a unit no query of the tile may see is
+# skipped.
+
+
+def _unit_mask(q, n, rng, shift=True):
+    """(Q, N) bool: by 64-row unit u (shifted by the query index when
+    ``shift``), every row passes (u % 3 == 0), none (1) or one in ten (2)."""
+    u = np.arange(n)[None, :] // 64 + (np.arange(q)[:, None] if shift else 0)
+    sparse = rng.random((q, n)) < 0.1
+    return np.where(u % 3 == 0, True, np.where(u % 3 == 1, False, sparse))
+
+
+@pytest.mark.parametrize("q", [1, 8, 100, 129])
+@pytest.mark.parametrize("d", [8, 33, 128])
+@pytest.mark.parametrize("n", [64, 65, 1000, 4096])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_quantized_tile_shapes_match_plain(cuda, q, d, n, dtype, metric):
+    """Q across the tile sizes, D = 8 and 33 (padded to 16, unaligned rows)
+    and 128, N either side of the 64-row unit and past the 512-row chunk
+    (4,096: the phase-7 shard, where the bf16 launch takes 4-query tiles);
+    row mask, dense and dedup'd plane with units full, empty and sparse;
+    k from 1 to past the chunk: within the plain version's tolerance, ids
+    equal outside ties."""
+    rng = np.random.default_rng(q * 7919 + d * 31 + n)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    plane = _unit_mask(q, n, rng)
+    row = _unit_mask(1, n, rng, shift=False)[0]
+    unique, idx = _dedup(plane, max(1, q // 2))
+    qq, x, m, p, u, i = _on(cuda, Q, X, row, plane, unique, idx)
+    tol = 1e-5 * (float(np.max(np.sum(Q * Q, 1))) + float(np.max(np.sum(X * X, 1))) + 1.0)
+    for k in (1, 40, 160, 600):
+        for fn, args in ((ops.masked_exact_topk, (qq, x, m)), (ops.masked_exact_topk_multi, (qq, x, p)),
+                         (ops.masked_exact_topk_dedup, (qq, x, u, i))):
+            got = fn(*args, k, metric=metric, dtype=dtype)
+            want = fn(*args, k + 1, metric=metric, dtype=dtype, backend="ref")
+            torch.cuda.synchronize()
+            _assert_close_ids(got, want, tol)
