@@ -89,16 +89,19 @@ an event pair around one Python call (``ms``, ``plain_ms``,
 (``device_ms``, ``plain_device_ms``, ``library_device_ms``: the device
 alone).  The masked rows also carry the device time of their two
 launches apart (``pass_ms``, from ``torch.profiler``), row 5 (f32) is
-timed again under phase 4's ``price < 4`` and ``price < 200`` bands and
-row 5' (bf16) at phase 7's ``price < 900`` on 4,096 rows (``at_shapes``).
+timed again under phase 4's ``price < 4`` and ``price < 200`` bands, rows
+5' (bf16) and 4 (int8) at phase 7's ``price < 900`` on 4,096 rows, row 6
+(int8 plane) there under phase 7's ten bands, and rows 8, 8' and 9 (ADC,
+ADC plane, unified) at phase 6's masks on 4,096 rows (``at_shapes``); the
+ADC op has a k sweep too.
 ``--parent DIR`` then holds
 ``masked_topk.cu``, ``rerank.cu``, ``kmeans_assign.cu`` and ``pq_scan.cu``
 of the checkout ``DIR`` against this one's (equal bits on every launch
 name but the bf16 ones, which are held to the plain version's tolerance;
 times in turns), and, without ``--only-kernels``, every
-``gather_rerank``, ``kmeans_assign`` and ``rerank_distances`` call of
-phases 3-9 too; ``--only-kernels`` stops after phase 2 without the result
-lines.
+``gather_rerank``, ``kmeans_assign`` and ``rerank_distances`` call and
+every int8, masked ADC and unified call of phases 3-9 too;
+``--only-kernels`` stops after phase 2 without the result lines.
 
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
 them after (``kmeans_assign`` also by (D, K), ``gather_rerank`` by
@@ -741,6 +744,7 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
     plane = torch.stack([price < 3000 + 500 * (i % 8) for i in range(Q)])
     merge(_masked_checks(torch, ops, q, x, luts, codes, plane, 40, f"main shape N={small_n}",
                          metrics=("l2",), k_adc=160))
+    small = _phase6_rows(torch, ops, q, x, luts, codes, price)
 
     q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, shard_n, D, 0.0, m=M, kc=KC)
     price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=shard_n)).to(dev)
@@ -770,6 +774,8 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
     plane_bcast = wide[None, :].expand(Q, -1)
     _k_sweep(torch, "masked_exact_topk", lambda m, k: ops.masked_exact_topk(q, x, m, k), wide,
              f"Q=100 N={shard_n} D=128 mask 50%")
+    _k_sweep(torch, "masked_pq_topk", lambda m, k: ops.masked_pq_topk(luts, codes, m, k), wide,
+             f"Q=100 N={shard_n} m=32 K=256 mask 50%")
     cases = {
         "masked_exact_topk": (
             lambda b: ops.masked_exact_topk(q, x, wide, 40, backend=b),
@@ -815,6 +821,8 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
         log(f"masked_exact_topk [{at[-1]['shape']}]: {_times_line(at[-1])}, max abs err "
             f"{at[-1]['max_abs_err']:.3g}")
     rows["masked_exact_topk"]["at_shapes"] = at
+    for name, row in small.items():
+        rows[name]["at_shapes"] = [row]
     del lg
     return rows
 
@@ -822,8 +830,77 @@ def phase_masked_kernels(torch, dev, shard_n: int, seed: int):
 # phase 4's price bands where row 5 (f32) runs on 250k-row shards: ExactScan
 # (price < 4) and the MaskedBeam fallbacks (price < 200)
 PROD_F32_BANDS = (4, 200)
-# phase 7's band where row 5' (bf16) runs on 4,096-row shards
+# phase 7's band where rows 5' (bf16) and 4 (int8) run on 4,096-row shards,
+# and its batches' ten bands (row 6 there)
 PROD_BF16_BAND = 900
+PROD_QUANT_BANDS = tuple(90 * (j + 1) for j in range(10))
+# phase 6 on 4,096-row shards: the PQScan band (row 8), the plane of eight
+# bands (row 8'), and the unified batch's exact band beside that plane (row 9)
+PROD_PQ_BAND = 3000
+PROD_PQ_PLANE = tuple(3000 + 500 * j for j in range(8))
+PROD_UNIFIED_EXACT_BAND = 20
+
+
+def phase6_masks(torch, price, q_count):
+    """Phase 6's masks on one shard as (unique rows, row index, flavor) for
+    each ADC row: the PQScan band for every query, the eight-band plane
+    (query i under band i % 8), and the unified batch (even queries exact
+    under price < 20, odd ones ADC under band (i // 2) % 8)."""
+    dev = price.device
+    i = np.arange(q_count)
+    band = torch.stack([price < PROD_PQ_BAND])
+    plane = torch.stack([price < t for t in PROD_PQ_PLANE])
+    mixed = torch.stack([price < PROD_UNIFIED_EXACT_BAND] + [price < t for t in PROD_PQ_PLANE])
+    mixed_idx = np.where(i % 2 == 0, 0, 1 + (i // 2) % 8)
+    return {
+        "masked_pq_topk": (band, torch.zeros(q_count, dtype=torch.int64, device=dev), None),
+        "masked_pq_topk_multi": (plane, torch.as_tensor(i % 8).to(dev), None),
+        "unified_masked_topk": (mixed, torch.as_tensor(mixed_idx).to(dev),
+                                torch.as_tensor(i % 2 == 1).to(dev)),
+    }
+
+
+def _phase6_rows(torch, ops, q, x, luts, codes, price) -> dict:
+    """Rows 8, 8' and 9 where phase 6 runs them: Q = 100 on one 4,096-row
+    shard, m = 32, K = 256, k = 160, under phase 6's masks (phase6_masks),
+    each timed as its phase-2 row is."""
+    Q, n, D = q.shape[0], x.shape[0], q.shape[1]
+    M, KC = luts.shape[1], luts.shape[2]
+    k = 160
+    lg = codes.T.long()[None].expand(Q, M, n)
+    satol = 1e-5 * float(luts.amax(2).sum(1).max())
+    atol = max(1e-5 * _scale(q, x), satol)
+    allq = torch.ones(Q, dtype=torch.bool, device=q.device)
+    masks = phase6_masks(torch, price, Q)
+
+    def lib_adc(plane):
+        d = torch.gather(luts, 2, lg).sum(1).masked_fill_(~plane, float("inf"))
+        return torch.topk(d, k, dim=1, largest=False)
+
+    rows = {}
+    for name, (uniq, idx, flavor) in masks.items():
+        plane = uniq[idx]
+        if name == "masked_pq_topk":
+            fn = (lambda b, m=uniq[0]: ops.masked_pq_topk(luts, codes, m, k, backend=b))
+            bound, lib, kernel, what = (_masked_bound(1, plane, D, M, KC, k, allq), lambda p=plane: lib_adc(p),
+                                        None, f"price < {PROD_PQ_BAND}")
+        elif name == "masked_pq_topk_multi":
+            fn = (lambda b, u=uniq, i=idx: ops.masked_pq_topk_dedup(luts, codes, u, i, k, backend=b))
+            bound, lib, kernel, what = (_masked_bound(uniq.shape[0], plane, D, M, KC, k, allq),
+                                        lambda p=plane: lib_adc(p), None,
+                                        f"plane of price < {PROD_PQ_PLANE[0]}..{PROD_PQ_PLANE[-1]}")
+        else:
+            fn = (lambda b, u=uniq, i=idx, f=flavor: ops.unified_masked_topk_dedup(
+                q, x, luts, codes, u, i, f, k, backend=b))
+            bound = _masked_bound(uniq.shape[0], plane, D, M, KC, k, flavor)
+            lib, kernel = None, _unified_launch(torch, q, x, luts, codes, uniq, idx, flavor, k)
+            what = (f"{Q // 2} exact under price < {PROD_UNIFIED_EXACT_BAND}, {Q - Q // 2} ADC under "
+                    f"the plane of price < {PROD_PQ_PLANE[0]}..{PROD_PQ_PLANE[-1]}")
+        shape = f"Q={Q} N={n} m={M} K={KC} k={k} {what} (phase 6)"
+        rows[name] = _masked_row(torch, name, fn, lib, bound, atol if flavor is not None else satol, shape,
+                                 kernel=kernel)
+        log(f"{name} [{shape}]: {_times_line(rows[name])}, max abs err {rows[name]['max_abs_err']:.3g}")
+    return rows
 
 
 def _masked_row(torch, name, fn, lib, bound, tol, shape, kernel=None, plain=None) -> dict:
@@ -981,7 +1058,7 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
         merge(_quant_checks(torch, ops, q, x, uniq[idx], k, f"main shape N={n}", metrics=("l2",)))
         pq_err = _pq_scan_check(torch, ops, luts, codes, f"pq_scan main shape N={n}")
         if n == SMALL_SHARD:
-            small = (q, x, price < PROD_BF16_BAND)
+            small = (q, x, price)
     # the last (one-shard) inputs are timed; pq_err is their pq_scan check's
     wide = price < 5000
     none = torch.zeros(Q, dtype=torch.bool, device=dev)
@@ -1050,7 +1127,8 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
 
     # row 5' where the main path runs it: phase 7's ExactScan of a 4,096-row
     # shard, 100 queries under price < 900, the quantized pool k = 160
-    sq, sx, band = small
+    sq, sx, sprice = small
+    band = sprice < PROD_BF16_BAND
     sstored, _ = ref.quantize_points(sx, "bf16")
     sqs, _ = ref.quantize_points(sq, "bf16")
 
@@ -1064,6 +1142,10 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
         lambda b: ops.masked_exact_topk(sq, sstored, band, k, backend=b, dtype="bf16", x_scale=1.0),
         small_lib, _masked_bound(1, band[None, :].expand(Q, -1), D, M, KC, k, none, elem=2, peak=PEAK_BF16),
         1e-5 * _scale(sq, sx), f"Q=100 N={SMALL_SHARD} D=128 k={k} price < {PROD_BF16_BAND}")]
+    # rows 4 and 6 where phase 7 runs them: the same shard under price < 900,
+    # and its batches' ten bands (query i under band i % 10)
+    for name, row in _phase7_int8_rows(torch, ops, ref, sq, sx, sprice, k).items():
+        rows[name]["at_shapes"] = [row]
 
     lg = codes.T.long()[None].expand(Q, M, shard_n)
 
@@ -1089,6 +1171,57 @@ def phase_quant_kernels(torch, dev, shard_n: int, seed: int):
             f"check of phase 2: {errs.get(name, 0.0):.3g})")
         for a in r.get("at_shapes", []):
             log(f"{name} [{a['shape']}]: {_times_line(a)}, max abs err {a['max_abs_err']:.3g}")
+    return rows
+
+
+def _phase7_int8_rows(torch, ops, ref, q, x, price, k) -> dict:
+    """Rows 4 and 6 where phase 7 runs them: Q = 100 on one 4,096-row
+    shard, k = 160, under price < 900 (row 4) and under the ten bands of
+    phase 7's batches (row 6), each timed as its phase-2 row is (device
+    times on queries quantized once)."""
+    from repro_torch.kernels import masked_topk as km
+
+    Q, D = q.shape
+    dev = q.device
+    stored, x_scale = ref.quantize_points(x, "int8")
+    qs, q_scale = ref.quantize_points(q, "int8")
+    sc = (q_scale, x_scale)
+    band = price < PROD_BF16_BAND
+    uniq = torch.stack([price < t for t in PROD_QUANT_BANDS])
+    idx = torch.as_tensor(np.arange(Q) % len(PROD_QUANT_BANDS)).to(dev)
+    band_u8 = band.to(torch.uint8).reshape(1, -1).contiguous()
+    uniq_u8, idx32 = uniq.to(torch.uint8).contiguous(), idx.to(torch.int32).contiguous()
+    none = torch.zeros(Q, dtype=torch.bool, device=dev)
+    atol = 1e-5 * _scale(q, x)
+    xf, qf = stored.float() * x_scale, qs.float() * q_scale
+
+    def lib(mask):
+        cross = torch._int_mm(qs, stored.T).float() * (q_scale * x_scale)
+        d = (qf * qf).sum(1, keepdim=True) - 2 * cross + (xf * xf).sum(1)[None, :]
+        return torch.topk(d.masked_fill_(~mask, float("inf")), k, dim=1, largest=False)
+
+    def deq():
+        return ref.dequantize_points(qs, q_scale), ref.dequantize_points(stored, x_scale)
+
+    cases = {
+        "masked_exact_topk_int8": (
+            lambda b: ops.masked_exact_topk(q, stored, band, k, backend=b, dtype="int8", x_scale=x_scale),
+            lambda: lib(band), 1, band[None, :].expand(Q, -1),
+            lambda: km.masked_exact_topk(qs, stored, band_u8, None, k, scales=sc),
+            lambda: ref.masked_exact_topk(*deq(), band, k), f"price < {PROD_BF16_BAND}"),
+        "masked_exact_topk_multi_int8": (
+            lambda b: ops.masked_exact_topk_dedup(q, stored, uniq, idx, k, backend=b, dtype="int8",
+                                                  x_scale=x_scale),
+            lambda: lib(uniq[idx]), uniq.shape[0], uniq[idx],
+            lambda: km.masked_exact_topk(qs, stored, uniq_u8, idx32, k, scales=sc),
+            lambda: ref.masked_exact_topk_multi(*deq(), uniq[idx], k),
+            f"plane of price < {PROD_QUANT_BANDS[0]}..{PROD_QUANT_BANDS[-1]}"),
+    }
+    rows = {}
+    for name, (fn, yard, q_rows, plane, kernel, plain, what) in cases.items():
+        rows[name] = _masked_row(
+            torch, name, fn, yard, _masked_bound(q_rows, plane, D, 0, 0, k, none, elem=1, peak=PEAK_INT8),
+            atol, f"Q={Q} N={x.shape[0]} D={D} k={k} {what} (phase 7)", kernel=kernel, plain=plain)
     return rows
 
 
@@ -1358,16 +1491,18 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     ``DIR`` (an earlier commit's tree).  Every f32, int8, ADC and unified
     launch name of ``masked_topk.cu`` on seeded phase-2 inputs (N = 4,096
     and one shard; both metrics, the 50 % row mask and the dedup'd plane of
-    ten price masks, k = 40 and 160) gives the same distance bits and ids
-    from both builds; the bf16 names, whose tile may round apart from its
+    ten price masks, k = 40 and 160, and for the int8, ADC and unified
+    names also k = 1 and 600, past the chunk) gives the same distance bits
+    and ids from both builds; the bf16 names, whose tile may round apart from its
     parent's, are held to the plain version's tolerance and ids from both
     builds instead.  So are ``gather_rerank`` and ``kmeans_assign`` (see
     ``_parent_rerank_kmeans``), ``rerank_distances`` and ``pq_scan`` (see
     ``_parent_rerank_pq``), bit for bit.  Then every masked launch name at
-    its phase-2 timed shape, row 5 under the main path's price bands, row
-    5' at phase 7's shape (device and host-inclusive times) and the k
-    sweeps are timed in turns (parent, change, change, parent) on this
-    card.  Returns the parent's libraries by source name."""
+    its phase-2 timed shape, row 5 under the main path's price bands, rows
+    5', 4 and 6 at phase 7's shape, rows 8, 8' and 9 at phase 6's (device
+    and host-inclusive times) and the k sweeps (exact and ADC) are timed in
+    turns (parent, change, change, parent) on this card.  Returns the
+    parent's libraries by source name."""
     from repro_torch.kernels import _build, ops, ref
 
     old_libs = _parent_libs(parent)
@@ -1387,7 +1522,7 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
         wide = price < 5000
         flavor = torch.arange(Q, device=dev) % 2 == 1
         quant = {dt: ref.quantize_points(x, dt) for dt in QUANT}
-        data[n] = (q, x, price, quant)
+        data[n] = (q, x, price, quant, luts, codes)
         # calls held bit for bit (f32, int8, ADC, unified) and, for bf16,
         # whose tile scores on the tensor cores in another order, to the
         # plain version's tolerance (each call takes its backend)
@@ -1421,6 +1556,26 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
                         close += pair
                     else:
                         calls += [(label, lambda fn=fn: fn("auto")) for label, fn in pair]
+        # the int8, ADC and unified names (this change's tiles) also at k = 1
+        # and past the 512-row chunk
+        st, xs = quant["int8"]
+        for k in (1, 600):
+            calls += [
+                (f"masked_pq_topk k={k}", lambda k=k: ops.masked_pq_topk(luts, codes, wide, k)),
+                (f"masked_pq_topk_multi k={k}",
+                 lambda k=k: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, k)),
+            ]
+            for metric in ("l2", "ip"):
+                kw = dict(metric=metric, dtype="int8", x_scale=xs)
+                calls += [
+                    (f"unified_masked_topk k={k} {metric}",
+                     lambda k=k, mt=metric: ops.unified_masked_topk_dedup(
+                         q, x, luts, codes, uniq, idx, flavor, k, metric=mt)),
+                    (f"masked_exact_topk_int8 k={k} {metric}",
+                     lambda k=k, kw=kw: ops.masked_exact_topk(q, st, wide, k, **kw)),
+                    (f"masked_exact_topk_multi_int8 k={k} {metric}",
+                     lambda k=k, kw=kw: ops.masked_exact_topk_dedup(q, st, uniq, idx, k, **kw)),
+                ]
         counts = _same_bits(torch, "masked_topk", old, new, calls, f"masked_topk.cu N={n}")
         counts.update(_same_tolerance(torch, "masked_topk", old, new, close, 1e-5 * (_scale(q, x) + 1.0),
                                       f"masked_topk.cu bf16 N={n}"))
@@ -1433,8 +1588,8 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     # their device times take the launch with it worked out once
     from repro_torch.kernels import masked_topk as km
 
-    q, x, price, quant = data[shard_n]
-    sq, _sx, sprice, squant = data[SMALL_SHARD]
+    q, x, price, quant, luts, codes = data[shard_n]
+    sq, sx, sprice, squant, sluts, scodes = data[SMALL_SHARD]
     timed = {
         "masked_exact_topk": lambda: ops.masked_exact_topk(q, x, wide, 40),
         "masked_exact_topk_multi": lambda: ops.masked_exact_topk_dedup(q, x, uniq, idx, 40),
@@ -1462,6 +1617,30 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     fn = (lambda m=sprice < PROD_BF16_BAND, s=squant["bf16"][0]: ops.masked_exact_topk(
         sq, s, m, 160, dtype="bf16", x_scale=1.0))
     timed[f"masked_exact_topk_bf16 [Q=100 N={SMALL_SHARD} k=160 price < {PROD_BF16_BAND}]"] = (fn, fn)
+    # rows 4 and 6 at phase 7's shape, rows 8, 8' and 9 at phase 6's
+    s8, sxs = squant["int8"]
+    sqs, sq_scale = ref.quantize_points(sq, "int8")
+    band = sprice < PROD_BF16_BAND
+    suniq = torch.stack([sprice < t for t in PROD_QUANT_BANDS])
+    sidx = torch.as_tensor(np.arange(Q) % len(PROD_QUANT_BANDS)).to(dev)
+    timed[f"masked_exact_topk_int8 [Q=100 N={SMALL_SHARD} k=160 price < {PROD_BF16_BAND}]"] = (
+        lambda: ops.masked_exact_topk(sq, s8, band, 160, dtype="int8", x_scale=sxs),
+        lambda: km.masked_exact_topk(sqs, s8, band.to(torch.uint8).reshape(1, -1).contiguous(), None, 160,
+                                     scales=(sq_scale, sxs)))
+    timed[f"masked_exact_topk_multi_int8 [Q=100 N={SMALL_SHARD} k=160 ten phase-7 bands]"] = (
+        lambda: ops.masked_exact_topk_dedup(sq, s8, suniq, sidx, 160, dtype="int8", x_scale=sxs),
+        lambda: km.masked_exact_topk(sqs, s8, suniq.to(torch.uint8).contiguous(),
+                                     sidx.to(torch.int32).contiguous(), 160, scales=(sq_scale, sxs)))
+    for name, (uniq6, idx6, fl6) in phase6_masks(torch, sprice, Q).items():
+        label = f"{name} [Q=100 N={SMALL_SHARD} m=32 K=256 k=160 phase 6's masks]"
+        if name == "unified_masked_topk":
+            timed[label] = (
+                lambda u=uniq6, i=idx6, f=fl6: ops.unified_masked_topk_dedup(sq, sx, sluts, scodes, u, i, f, 160),
+                _unified_launch(torch, sq, sx, sluts, scodes, uniq6, idx6, fl6, 160))
+        else:
+            fn = (lambda u=uniq6, i=idx6: ops.masked_pq_topk_dedup(sluts, scodes, u, i, 160)
+                  if u.shape[0] > 1 else ops.masked_pq_topk(sluts, scodes, u[0], 160))
+            timed[label] = (fn, fn)
     for label, (host, dev_fn) in timed.items():
         a, b = _turns(torch, "masked_topk", old, new, dev_fn,
                       timer=lambda torch, fn: device_ms(torch, fn, inner=5, reps=10))
@@ -1481,17 +1660,24 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
         name = "masked_exact_topk" + ("" if dt == "f32" else f"_{dt}")
         log(f"parent vs change k sweep {name} [Q=100 N={shard_n} D=128 mask 50%], parent / change ms "
             "(with the host's dispatch): " + ", ".join(parts))
+    parts = []
+    for label, mask, k in sweep:
+        a, b = _turns(torch, "masked_topk", old, new, lambda mask=mask, k=k: ops.masked_pq_topk(luts, codes, mask, k))
+        parts.append(f"{label} {a:.4f} / {b:.4f}")
+    log(f"parent vs change k sweep masked_pq_topk [Q=100 N={shard_n} m=32 K=256 mask 50%], parent / change "
+        "ms (with the host's dispatch): " + ", ".join(parts))
     return old_libs
 
 
 def _shadow_main_path(torch, old_libs: dict) -> dict:
     """``--parent DIR`` with the main path: from here on every
     ``gather_rerank``, ``kmeans_assign`` and ``exact_distances``
-    (``rerank_distances``) call on a CUDA tensor also runs
-    the parent's build of its source, on the same inputs and thread and
+    (``rerank_distances``) call on a CUDA tensor, and every int8 exact
+    scan, masked ADC and unified call (``masked_topk.cu``), also runs the
+    parent's build of its source, on the same inputs and thread and
     uncounted, and the two outputs are compared bit for bit.  Returns the
-    tally {name: [calls, calls whose bits differ]}, filled as phases 3-9
-    run."""
+    tally {name: [calls, calls whose bits differ]} (SHADOWED names),
+    filled as phases 3-9 run."""
     import threading
 
     from repro_torch.kernels import _build, ops
@@ -1514,17 +1700,25 @@ def _shadow_main_path(torch, old_libs: dict) -> dict:
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
-    def wrap(name, src, fn):
+    def wrap(name, src, fn, when=None):
         def call(*a, **kw):
-            out = fn(*a, **kw)
-            outs = out if isinstance(out, tuple) else (out,)
-            if kw.get("backend", "auto") == "ref" or not outs[0].is_cuda:
-                return out
-            local.libs = {src: old_libs[src]}
+            # an op that another wrapped op calls runs as it is, once
+            if getattr(local, "active", False):
+                return fn(*a, **kw)
+            local.active = True
             try:
-                old = fn(*a, **kw)
+                out = fn(*a, **kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                if (kw.get("backend", "auto") == "ref" or not outs[0].is_cuda
+                        or (when is not None and not when(kw))):
+                    return out
+                local.libs = {src: old_libs[src]}
+                try:
+                    old = fn(*a, **kw)
+                finally:
+                    local.libs = None
             finally:
-                local.libs = None
+                local.active = False
             olds = old if isinstance(old, tuple) else (old,)
             same = all(torch.equal(bits(u), bits(v)) for u, v in zip(outs, olds))
             with lock:
@@ -1534,10 +1728,25 @@ def _shadow_main_path(torch, old_libs: dict) -> dict:
             return out
         return call
 
+    def int8(kw):
+        return kw.get("dtype") == "int8"
+
     ops.gather_rerank = wrap("gather_rerank", "rerank", ops.gather_rerank)
     ops.kmeans_assign = wrap("kmeans_assign", "kmeans_assign", ops.kmeans_assign)
     ops.exact_distances = wrap("rerank_distances", "rerank", ops.exact_distances)
+    # the masked launch names whose tiles this change rebuilt: int8 and ADC
+    ops.masked_exact_topk = wrap("masked_exact_topk_int8", "masked_topk", ops.masked_exact_topk, int8)
+    ops.masked_exact_topk_dedup = wrap("masked_exact_topk_multi_int8", "masked_topk",
+                                       ops.masked_exact_topk_dedup, int8)
+    ops.masked_pq_topk = wrap("masked_pq_topk", "masked_topk", ops.masked_pq_topk)
+    ops.masked_pq_topk_dedup = wrap("masked_pq_topk_multi", "masked_topk", ops.masked_pq_topk_dedup)
+    ops.unified_masked_topk_dedup = wrap("unified_masked_topk", "masked_topk", ops.unified_masked_topk_dedup)
     return tally
+
+
+# every launch name _shadow_main_path holds against the parent's build
+SHADOWED = ("gather_rerank", "kmeans_assign", "masked_exact_topk_int8", "masked_exact_topk_multi_int8",
+            "masked_pq_topk", "masked_pq_topk_multi", "rerank_distances", "unified_masked_topk")
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -2429,8 +2638,8 @@ def main() -> int:
                          "pq_scan.cu of the checkout DIR (an earlier commit's tree) against this "
                          "one's: equal bits (bf16: the plain version's tolerance), times in turns; "
                          "without --only-kernels, also every "
-                         "gather_rerank, kmeans_assign and rerank_distances call of phases 3-9, "
-                         "bit for bit")
+                         "gather_rerank, kmeans_assign, rerank_distances, int8 exact, masked ADC "
+                         "and unified call of phases 3-9, bit for bit")
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after phase 2 (and --parent), without the result lines")
     args = ap.parse_args()
@@ -2491,7 +2700,7 @@ def main() -> int:
     if shadow is not None:
         log(f"parent vs change on phases 3-9, every call also run on the parent's build: "
             f"{ {name: f'{n} calls, {bad} with other bits' for name, (n, bad) in shadow.items()} }")
-        if sorted(shadow) != ["gather_rerank", "kmeans_assign", "rerank_distances"] or any(
+        if sorted(shadow) != list(SHADOWED) or any(
                 bad for _n, bad in shadow.values()):
             raise AssertionError(f"--parent: the main path's outputs differ from the parent's build: {shadow}")
     log(f"launches by phase: {per_phase}")

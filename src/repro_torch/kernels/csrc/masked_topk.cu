@@ -17,10 +17,10 @@
 //   masked_exact_topk_multi_pallas: bf16 (_masked_exact_kernel on bf16
 //   inputs) multiplies bf16 values on the tensor cores and sums in f32, the
 //   norms f32 sums of the upcast values; int8 (_masked_exact_q_kernel) sums
-//   the int8 x int8 cross in int32 (__dp4a on four packed values) and
-//   multiplies it by q_scale * x_scale afterwards, and the norms are f32
-//   sums of the squared dequantized values (x * scale), as
-//   masked_topk.py:217-231 computes them.
+//   the int8 x int8 cross in int32 on the tensor cores and multiplies it by
+//   q_scale * x_scale afterwards, and the norms are f32 sums of the squared
+//   dequantized values (x * scale), as masked_topk.py:217-231 computes
+//   them.
 //
 // The three share all device code: the masked expanded-form distance
 // tiles, the ADC row score and the chunked top-k select and merge.  An f32
@@ -72,7 +72,7 @@
 // select's cost follows the live rows, not k; only the k slots written and
 // merged grow with it.
 //
-// Mask pass (f32 and bf16 tiles).  A block reads its chunk's mask bytes
+// Mask pass (every tile).  A block reads its chunk's mask bytes
 // once for each distinct mask row of its tile (8-byte loads where the
 // rows allow), packs them into bits in shared memory, and works out from
 // the bits which 64-row units of the chunk any query of the tile may see.
@@ -102,32 +102,55 @@
 // 100 query slots scored, not 128).  A chunk no query of the tile may see
 // writes its sentinels and nothing else.
 //
-// bf16 tile (rows 5', 7'): scores on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate), points on the M side (16
-// rows), queries on the N side (8 a fragment), both (rows, D) row-major, so
-// neither is transposed; fragments come from shared memory by ldmatrix.
-// A block stages its whole chunk, 16 features a stage (32 bytes a row,
-// the two 16-byte halves swizzled by (row >> 2) & 1 so each 8 x 8 matrix
-// hits 8 bank quads), through the same cp.async ring, features past D
-// zero.  Warp w owns the chunk's rows [64 w, 64 w + 64)
-// (four 16-row fragments against every 8-query fragment of the tile) and
-// skips a unit no query of the tile may see.  Norms stay f32 __fmaf_rn
-// chains over the upcast values, once a row a block.  The tile's query
+// Tensor-core tiles, bf16 (rows 5', 7') and int8 (rows 4, 6; replaces
+// _masked_exact_q_kernel, masked_topk.py:289 and :357): one template
+// (tc_tile) on mma.sync, m16n8k16 for bf16 (f32 sums) and m16n8k32 for int8
+// (int32 sums), points on the M side (16 rows), queries on the N side (8 a
+// fragment), both (rows, D) row-major, so neither is transposed; fragments
+// come from shared memory by ldmatrix, and the int8 fragments are the bf16
+// ones in bytes (a register holds 4 int8 values where it held 2 bf16).  A
+// block stages its whole chunk, 32 bytes of each row a stage (16 bf16 or
+// 32 int8 features; the two 16-byte halves swizzled by (row >> 2) & 1 so
+// each 8 x 8 b16 matrix hits 8 bank quads), through the same cp.async ring
+// (16-byte copies where rows are 16-byte aligned, element loads
+// otherwise), features past D zero.  Warp w owns the chunk's rows
+// [64 w, 64 w + 64) (four 16-row fragments against every 8-query fragment
+// of the tile) and skips a unit no query of the tile may see.  Norms stay
+// f32 __fmaf_rn chains over the upcast (bf16) or dequantized (int8) values
+// in feature order, once a row a block.  The int8 cross is an exact int32
+// sum (at D = 128 at most 128 x 127^2), so its bits do not depend on the
+// order; the score is exact_score(q2, acc * (q_scale * x_scale), x2), as
+// the SIMT tile it replaces computed it, bit for bit.  The tile's query
 // count (16, 8 or 4) is the largest that still gives every SM a block: at
 // N = 4,096 (8 chunks) and Q = 100, 4 queries a tile and 200 blocks.  A
-// dead chunk writes its sentinels, as in the f32 tile.
+// dead chunk writes its sentinels, as in the f32 tile.  Bound: int8 reads
+// a quarter of f32's bytes and its operations take microseconds on the
+// tensor cores, so what is left is the select (latency-bound: two blocks
+// an SM, 16 warps) and the mask pass.
 //
-// int8 tile (rows 4, 6): 32 queries x 64 rows a step, 256 threads each
-// holding a 2 x 4 register block, D streamed through shared memory in
-// stages of 16, four int8 values packed a word, __dp4a sums; a step no query
-// of the tile may see is skipped (its own mask reads, one byte at a time).
-//
-// ADC tiles: the LUTs of a few queries (m K 4 bytes each, 32 KB at m = 32,
-// K = 256) and the chunk's codes (uint8, one contiguous range) sit in
-// shared memory, and each thread scores whole rows.  The TPU's one-hot LUT
-// matmul exists only because the TPU has no lane gather
-// (src/repro/kernels/pq_scan.py); Hopper gathers from shared memory.  In the
-// unified launch the first tiles are exact and the rest ADC, over a query
+// ADC tile (rows 8, 8' and the ADC half of 9; replaces _masked_pq_kernel,
+// masked_topk.py:406 and :590, and the ADC planes of _unified_kernel,
+// :539).  The TPU's one-hot LUT matmul exists only because the TPU has no
+// lane gather (src/repro/kernels/pq_scan.py); Hopper gathers from shared
+// memory.  A tile is 8, 4, 2 or 1 queries (the most whose LUTs fit
+// ADC_BUDGET: 2 at m = 32, K = 256; one where a single LUT is larger), its
+// LUTs interleaved two queries an entry (lut[g][j][c][w]) so one 8-byte
+// shared load serves both.  The work is (tile, batch of chunks) items; a
+// grid of one block a slot of the card (two an SM) walks them, each block a
+// contiguous share, tile-major, so a block stages its tile's LUTs once (by
+// 16-byte loads) for every batch of the tile it takes, not once a (tile,
+// chunk): at the phase-2 shape about 35 MB from L2 where a (tile, chunk)
+// block staged 1.6 GB.  A batch: each chunk's mask bits, the list of rows
+// some query of the tile may see (ascending), those rows scored (a thread
+// a row, its m codes read as 16-byte vectors where the codes are aligned
+// and m is 16 to 64, else bytes; each sum one __fadd_rn chain in
+// subquantizer order, so the bits are the plain version's), and one warp
+// a (chunk, query) list selecting over the compacted list (the batch holds
+// 8 / tq chunks, so every warp selects).  Bound: its lookups are cheap
+// beside the select, which at two blocks an SM (the most the footprint
+// and the select's 128 registers allow without spilling) is latency-bound
+// with little scoring to hide behind.  In the unified launch the first
+// grid columns are exact tiles and the rest ADC blocks, over a query
 // order the wrapper gives (exact queries first), so a block scores only one
 // flavor; the TPU kernel computes both planes and selects.
 //
@@ -153,15 +176,15 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CN = 512;  // rows per chunk
-constexpr int TQ = 32;   // queries per exact tile (f32, int8), per ADC tile at most
+constexpr int TQ = 32;   // queries per f32 tile; the other tiles take fewer
 constexpr int UNIT = 64;             // rows a skip unit
 constexpr int UNITS = CN / UNIT;     // skip units a chunk
 constexpr int MASK_BYTES = CN / 8;   // one mask row's bits over a chunk
 constexpr int SPT = CN / 32;  // keys a lane holds in a chunk's sort
 constexpr int MERGE_WARPS = 16;  // at most: 32 lists a warp, then one warp over the streams
 constexpr int MAX_SMEM = 227 * 1024;
-constexpr int ADC_SMEM = 200 * 1024;  // dynamic shared bytes an ADC tile may take
 constexpr int MERGE_SMEM = MAX_SMEM - 1024;  // leaves room for the static arrays
+constexpr int CHUNK_SMEM = MAX_SMEM - 4096;  // every pass-1 kernel's ceiling (static arrays < 4 KB)
 static_assert((CN & (CN - 1)) == 0 && SPT * 32 == CN, "the chunk sort holds CN keys, a power of two");
 static_assert(MERGE_WARPS <= 32, "the second merge level gives each stream one lane");
 
@@ -177,28 +200,35 @@ constexpr int F_STAGE = (TQ + CN) * KS;  // floats of one ring stage: query rows
 constexpr int F_RING = RING * F_STAGE > TQ * CN ? RING * F_STAGE : TQ * CN;
 constexpr int F_SMEM = (F_RING + CN) * 4 + TQ * MASK_BYTES;
 static_assert((TQ / F_TM) * (UNIT / F_TN) == 32, "a warp: 32 queries x one 64-row unit");
-// bf16 tile: the whole chunk staged, KS features a stage, warp w on rows
-// [64 w, 64 w + 64)
+// tensor-core tiles (bf16, int8): the whole chunk staged, 32 bytes of each
+// row a stage (16 bf16 or 32 int8 features), warp w on rows [64 w, 64 w + 64)
 constexpr int B_TQ = 16;  // queries a tile at most (the launch takes 16, 8 or 4)
-constexpr int B_STAGE = (B_TQ + CN) * KS;  // bf16 values of one ring stage
-// the ring (2-byte values), and over it the (tq, CN) scores; the row
-// norms; the mask bits
-__host__ __device__ constexpr int bf16_smem(int tq) {
-  return (RING * B_STAGE * 2 > tq * CN * 4 ? RING * B_STAGE * 2 : tq * CN * 4) + CN * 4 + tq * MASK_BYTES;
+constexpr int ROW_BYTES = 32;                    // bytes of a staged row a stage
+constexpr int B_STAGE = (B_TQ + CN) * ROW_BYTES;  // bytes of one ring stage
+// the ring, and over it the (tq, CN) scores; the row norms; the mask bits
+__host__ __device__ constexpr int tc_smem(int tq) {
+  return (RING * B_STAGE > tq * CN * 4 ? RING * B_STAGE : tq * CN * 4) + CN * 4 + tq * MASK_BYTES;
 }
 static_assert(UNITS == WARPS && 2 * THREADS == CN, "one 64-row unit a warp, two row norms a thread");
-// int8 tile: 32 queries x 64 rows a step, a 2 x 4 register block
-constexpr int BN = 64;   // rows per step
-constexpr int BK = 16;   // feature dims per shared-memory stage
-constexpr int TM = 2;    // register block: TM queries x TN rows
-constexpr int TN = 4;
-constexpr int W8 = BK / 4;  // staged words a row: four int8 features a word
-constexpr int EXACT_SMEM = TQ * CN * 4;  // the int8 tile's (TQ, CN) scores
-static_assert((TQ / TM) * (BN / TN) == THREADS, "one register block per thread");
-static_assert(BK % 4 == 0, "int8 stages pack four features a word");
-constexpr int CHUNK_SMEM = ADC_SMEM;  // every pass-1 kernel's ceiling
-static_assert(F_SMEM <= CHUNK_SMEM && bf16_smem(B_TQ) <= CHUNK_SMEM && EXACT_SMEM <= CHUNK_SMEM,
+// blocks an SM each tile's launch bound asks for: the f32 tile's 64 sums
+// need 128 registers; the tensor-core tiles' 32 sums, their fragments and
+// the select fit the same (A/B of the int8 tile at three in PERF.md)
+constexpr int F32_BLOCKS = 2, TC_BLOCKS = 2;
+// ADC tile: at most ADC_TQ queries, their LUTs in shared memory once a
+// block; a footprint of at most ADC_BUDGET bytes leaves ADC_BLOCKS blocks
+// an SM (228 KB an SM, 1 KB reserved a block, the static arrays)
+constexpr int ADC_TQ = 8;
+constexpr int ADC_BLOCKS = 2;
+constexpr int ADC_BUDGET = 110 * 1024;
+// the ADC tile's dynamic shared bytes: tq LUTs (rounded to 16 bytes), and
+// for each of nb chunks a batch its (tq, CN) scores, its live-row list and
+// its mask bits
+__host__ __device__ constexpr size_t adc_smem(int tq, int nb, int M, int K) {
+  return ((size_t)tq * M * K + 3) / 4 * 16 + (size_t)nb * (tq * CN * 4 + CN * 2 + tq * MASK_BYTES);
+}
+static_assert(F_SMEM <= CHUNK_SMEM && tc_smem(B_TQ) <= CHUNK_SMEM && ADC_BUDGET <= CHUNK_SMEM,
               "one fixed ceiling covers every tile");
+static_assert(ADC_TQ <= TQ, "an ADC tile's queries fit the tile arrays");
 
 // element kinds of the exact flavor's queries and points
 constexpr int F32 = 0, BF16 = 1, INT8 = 2;
@@ -215,7 +245,13 @@ struct Args {
   int* part_i;
   int Q, N, D, M, K, metric;
   int n_exact;             // qperm[0, n_exact) score exact, the rest ADC
-  int tiles_exact, tq_exact, tq_adc, chunks, kc;
+  int tiles_exact, tq_exact, chunks, kc;
+  // ADC: queries a tile, queries a LUT group (interleaved), chunks a batch;
+  // tiles x batches work items shared by blocks_adc blocks, cols_adc
+  // columns of the grid past the exact tiles
+  int tq_adc, w_adc, b_adc, tiles_adc, batches_adc, blocks_adc, cols_adc;
+  int code_vecs;           // 16-byte code vectors a row held in registers (0: byte loads)
+  bool lut_vec;            // LUTs staged by 16-byte loads
   bool vec;                // q and x rows 16-byte aligned: 16-byte copies
   bool mask_vec;           // mask rows 8-byte aligned: 8-byte mask loads
   float q_scale, x_scale;  // int8: dequantization scales (1 otherwise)
@@ -261,60 +297,25 @@ __device__ __forceinline__ uint64_t warp_min(uint64_t key) {
 }
 
 
-// |v|^2 of int8 row ``row``: one fused multiply-add chain in feature
-// order over the dequantized values (v * scale)
-__device__ __forceinline__ float sq_norm_int8(const void* base, size_t row, int D, float scale) {
-  const int8_t* p = static_cast<const int8_t*>(base) + row * D;
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float v = __fmul_rn(static_cast<float>(p[d]), scale);
-    s = __fmaf_rn(v, v, s);
-  }
-  return s;
-}
-
-// the int8 tile's staged word: features [gk, gk + 4) of one row, packed
-// (features past D load as zeros)
-__device__ __forceinline__ int load_word(const void* base, size_t row, int D, int gk, bool valid) {
-  const int8_t* p = static_cast<const int8_t*>(base) + row * D;
-  unsigned w = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    if (valid && gk + b < D) w |= (static_cast<unsigned>(static_cast<uint8_t>(p[gk + b])) << (8 * b));
-  return static_cast<int>(w);
-}
-
-// add the squares of one staged int8 word's dequantized values to a norm,
-// feature order
-__device__ __forceinline__ float norm_add(int w, float s, float scale) {
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const float v = __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> (8 * b))), scale);
-    s = __fmaf_rn(v, v, s);
-  }
-  return s;
-}
-
 // the expanded-form score from the chain sums
 __device__ __forceinline__ float exact_score(float q2, float cross, float x2, int metric) {
   return metric == 0 ? __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, cross)), x2) : -cross;
 }
 
-// the ADC score of one row: adds in subquantizer order, from 0
-__device__ __forceinline__ float adc_score(const float* lut, const uint8_t* code, int M, int K) {
-  float s = 0.f;
-  for (int j = 0; j < M; ++j) s = __fadd_rn(s, lut[j * K + code[j]]);
-  return s;
-}
-
 __host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2) : 0; }
+
+// the lane index, read afresh each time (volatile: never hoisted)
+__device__ __forceinline__ int lane_id() {
+  int l;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(l));
+  return l;
+}
 
 // Sorts the warp's 32 M keys ascending into positions e = lane * M + r with
 // a bitonic network: partners closer than M are in the lane's own
 // registers, farther ones in lane ^ (distance / M).
 template <int M>
-__device__ __forceinline__ void warp_sort(uint64_t (&v)[M]) {
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void warp_sort(uint64_t (&v)[M], int lane) {
 #pragma unroll
   for (int s = 1; s <= 5 + ilog2(M); ++s) {
 #pragma unroll
@@ -347,31 +348,33 @@ __device__ __forceinline__ void warp_sort(uint64_t (&v)[M]) {
 }
 
 // sorts v and writes the first kc positions as (score, row0 + row), DEAD
-// keys and positions past 32 M as (+inf, -1)
-template <int M>
+// keys and positions past 32 M as (+inf, -1); with MAP the key's row is a
+// position in ``rowmap``, which names the chunk row
+template <int M, bool MAP>
 __device__ __forceinline__ void sort_write(uint64_t (&v)[M], int kc, int row0, float* out_d,
-                                           int* out_i) {
-  const int lane = threadIdx.x & 31;
-  warp_sort<M>(v);
+                                           int* out_i, const uint16_t* rowmap, int lane) {
+  warp_sort<M>(v, lane);
 #pragma unroll
   for (int r = 0; r < M; ++r) {
     const int e = lane * M + r;
     if (e >= kc) continue;
     out_d[e] = v[r] != DEAD ? key_score(v[r]) : CUDART_INF_F;
-    out_i[e] = v[r] != DEAD ? row0 + key_row(v[r]) : -1;
+    out_i[e] = v[r] != DEAD ? row0 + (MAP ? rowmap[key_row(v[r])] : key_row(v[r])) : -1;
   }
+  // the sentinel loops stay rolled: unrolled, their trip counts are worked
+  // out at the kernel's start and held (or spilled) across the whole tile
+#pragma unroll 1
   for (int e = 32 * M + lane; e < kc; e += 32) { out_d[e] = CUDART_INF_F; out_i[e] = -1; }
 }
 
 // the ``live`` keys of buf (live <= 32 M), sorted and written
-template <int M>
+template <int M, bool MAP>
 __device__ void sort_compacted(const uint64_t* buf, int live, int kc, int row0, float* out_d,
-                               int* out_i) {
-  const int lane = threadIdx.x & 31;
+                               int* out_i, const uint16_t* rowmap, int lane) {
   uint64_t v[M];
 #pragma unroll
   for (int r = 0; r < M; ++r) v[r] = r * 32 + lane < live ? buf[r * 32 + lane] : DEAD;
-  sort_write<M>(v, kc, row0, out_d, out_i);
+  sort_write<M, MAP>(v, kc, row0, out_d, out_i, rowmap, lane);
 }
 
 // One warp: the kc best (score, row) of dist[0, rows), ascending, ties to the
@@ -381,8 +384,17 @@ __device__ void sort_compacted(const uint64_t* buf, int live, int kc, int row0, 
 // chunk with no live key writes sentinels; one with more than half live
 // sorts all CN keys; else the live keys are compacted over the chunk's
 // scores (all read by then) and the next power of two >= 32 of them sorted.
-__device__ void chunk_select(float* dist, int rows, int kc, int row0, float* out_d, int* out_i) {
-  const int lane = threadIdx.x & 31;
+// With MAP, dist holds the scores of a compacted list of rows, ascending,
+// and rowmap[j] names the chunk row of position j: positions order as their
+// rows do, so the select and its ties are the uncompacted chunk's.  That
+// form runs inside the ADC tile's loop over batches; it reads its lane with
+// volatile asm, so the network's lane-only flags and addresses are worked
+// out where they are used, not hoisted out of the loop and held (or
+// spilled) across the scoring.
+template <bool MAP = false>
+__device__ void chunk_select(float* dist, int rows, int kc, int row0, float* out_d, int* out_i,
+                             const uint16_t* rowmap = nullptr) {
+  const int lane = MAP ? lane_id() : threadIdx.x & 31;
   uint64_t v[SPT];
   int live = 0;
 #pragma unroll
@@ -392,11 +404,12 @@ __device__ void chunk_select(float* dist, int rows, int kc, int row0, float* out
     live += __popc(__ballot_sync(FULL, v[r] != DEAD));
   }
   if (live == 0) {
+#pragma unroll 1
     for (int s = lane; s < kc; s += 32) { out_d[s] = CUDART_INF_F; out_i[s] = -1; }
     return;
   }
   if (live > CN / 2) {
-    sort_write<SPT>(v, kc, row0, out_d, out_i);
+    sort_write<SPT, MAP>(v, kc, row0, out_d, out_i, rowmap, lane);
     return;
   }
   uint64_t* buf = reinterpret_cast<uint64_t*>(dist);
@@ -409,10 +422,10 @@ __device__ void chunk_select(float* dist, int rows, int kc, int row0, float* out
     base += __popc(bal);
   }
   __syncwarp();
-  if (live <= 32) sort_compacted<1>(buf, live, kc, row0, out_d, out_i);
-  else if (live <= 64) sort_compacted<2>(buf, live, kc, row0, out_d, out_i);
-  else if (live <= 128) sort_compacted<4>(buf, live, kc, row0, out_d, out_i);
-  else sort_compacted<8>(buf, live, kc, row0, out_d, out_i);
+  if (live <= 32) sort_compacted<1, MAP>(buf, live, kc, row0, out_d, out_i, rowmap, lane);
+  else if (live <= 64) sort_compacted<2, MAP>(buf, live, kc, row0, out_d, out_i, rowmap, lane);
+  else if (live <= 128) sort_compacted<4, MAP>(buf, live, kc, row0, out_d, out_i, rowmap, lane);
+  else sort_compacted<8, MAP>(buf, live, kc, row0, out_d, out_i, rowmap, lane);
 }
 
 
@@ -453,52 +466,67 @@ __device__ __forceinline__ void ring(int D, Stage stage, Body body) {
   }
 }
 
-// Query side of a tile, shared by the f32 and bf16 tiles: each query's id,
-// its slot (the first query of the tile with the same mask row) and its
-// |q|^2 (summed from the staged rows), and the bits of every distinct mask
-// row over the chunk's rows [row0, row0 + rows): each row's bytes read
+// Query side of a tile, shared by every tile: each query's id, its mask
+// row, its slot (the first query of the tile with the same mask row) and
+// its |q|^2 (summed from the staged rows), and the bits of every distinct
+// mask row over the chunk's rows [row0, row0 + rows): each row's bytes read
 // once, 8 at a time where rows are 8-byte aligned; bits past ``rows`` are
 // 0.  Then live[u]: some query of the tile may see a row of unit u (warp u
 // looks, one 8-byte read of the unit's bits a query).
 struct TileQueries {
   int qid[TQ];
+  int mrow[TQ];
   int slot[TQ];
   float q2[TQ];
   bool live[UNITS];
 };
 
-__device__ void tile_setup(const Args& a, TileQueries& t, uint8_t* bits, int first, int nq,
-                           int row0, int rows) {
-  __shared__ int mrow[TQ];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// the ids, mask rows and slots of the queries at positions [first, first + nq)
+__device__ void tile_queries(const Args& a, TileQueries& t, int first, int nq) {
+  const int tid = threadIdx.x;
   if (tid < nq) {
     const int qid = a.qperm ? a.qperm[first + tid] : first + tid;
     t.qid[tid] = qid;
-    mrow[tid] = a.mask_row ? a.mask_row[qid] : 0;
+    t.mrow[tid] = a.mask_row ? a.mask_row[qid] : 0;
   }
   __syncthreads();
   if (tid < nq) {
     int s = 0;
-    while (mrow[s] != mrow[tid]) ++s;
+    while (t.mrow[s] != t.mrow[tid]) ++s;
     t.slot[tid] = s;
   }
   __syncthreads();
-  for (int e = tid; e < nq * MASK_BYTES; e += THREADS) {
-    const int i = e / MASK_BYTES, w = e % MASK_BYTES, r = 8 * w;
-    if (t.slot[i] != i) continue;
-    const uint8_t* m = a.mask + (size_t)mrow[i] * a.N + row0 + r;
-    unsigned b = 0;
-    if (a.mask_vec && r < rows) {  // rows is a multiple of 8 here
-      const uint2 v = *reinterpret_cast<const uint2*>(m);
+}
+
+// bits [8 w, 8 w + 8) of query i's mask row over the chunk's rows
+// [row0, row0 + rows): 8 bytes read at once where rows are 8-byte aligned;
+// bits past ``rows`` are 0
+__device__ __forceinline__ uint8_t mask_byte(const Args& a, const TileQueries& t, int i, int w, int row0,
+                                             int rows) {
+  const int r = 8 * w;
+  const uint8_t* m = a.mask + (size_t)t.mrow[i] * a.N + row0 + r;
+  unsigned b = 0;
+  if (a.mask_vec && r < rows) {  // rows is a multiple of 8 here
+    const uint2 v = *reinterpret_cast<const uint2*>(m);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b |= ((v.x >> (8 * j)) & 0xffu ? 1u : 0u) << j;
-        b |= ((v.y >> (8 * j)) & 0xffu ? 1u : 0u) << (4 + j);
-      }
-    } else {
-      for (int j = 0; j < 8 && r + j < rows; ++j) b |= (m[j] ? 1u : 0u) << j;
+    for (int j = 0; j < 4; ++j) {
+      b |= ((v.x >> (8 * j)) & 0xffu ? 1u : 0u) << j;
+      b |= ((v.y >> (8 * j)) & 0xffu ? 1u : 0u) << (4 + j);
     }
-    bits[i * MASK_BYTES + w] = static_cast<uint8_t>(b);
+  } else {
+    for (int j = 0; j < 8 && r + j < rows; ++j) b |= (m[j] ? 1u : 0u) << j;
+  }
+  return static_cast<uint8_t>(b);
+}
+
+__device__ void tile_setup(const Args& a, TileQueries& t, uint8_t* bits, int first, int nq,
+                           int row0, int rows) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  tile_queries(a, t, first, nq);
+  // each distinct mask row's bits, into bits[slot][MASK_BYTES]
+  for (int e = threadIdx.x; e < nq * MASK_BYTES; e += THREADS) {
+    const int i = e / MASK_BYTES, w = e % MASK_BYTES;
+    if (t.slot[i] == i) bits[e] = mask_byte(a, t, i, w, row0, rows);
   }
   __syncthreads();
   const int q = lane;
@@ -519,6 +547,7 @@ __device__ void dead_chunk(const Args& a, const TileQueries& t, int nq, int chun
   const int lane = threadIdx.x & 31;
   for (int qi = threadIdx.x >> 5; qi < nq; qi += WARPS) {
     const size_t base = ((size_t)t.qid[qi] * a.chunks + chunk) * a.kc;
+#pragma unroll 1
     for (int s = lane; s < a.kc; s += 32) {
       a.part_d[base + s] = CUDART_INF_F;
       a.part_i[base + s] = -1;
@@ -697,11 +726,6 @@ __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
   }
 }
 
-// bf16 staged row r, 16-byte half h (features 8 h .. 8 h + 7), in bf16
-// values: the halves of a row swizzled by (r >> 2) & 1, so an 8 x 8
-// matrix's 8 rows lie in 8 different bank quads
-__device__ __forceinline__ int b_swz(int r, int h) { return r * KS + ((h ^ ((r >> 2) & 1)) << 3); }
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -728,6 +752,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a b: a 16 x 32 int8 fragment (rows = points), b 32 x 8 (columns =
+// queries), int32 sums.  The fragments are the bf16 ones in bytes: a
+// register holds 4 int8 values where it held 2 bf16, so the same ldmatrix
+// loads serve (PTX ISA, mma.m16n8k32 fragments for .s8).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // adds the squares of 8 staged bf16 values (one 16-byte half), upcast, to a
 // norm in feature order
 __device__ __forceinline__ float norm8_bf16(const __nv_bfloat16* p, float s) {
@@ -742,17 +778,78 @@ __device__ __forceinline__ float norm8_bf16(const __nv_bfloat16* p, float s) {
   return s;
 }
 
+// adds the squares of 16 staged int8 values (one 16-byte half),
+// dequantized (v * scale), to a norm in feature order
+__device__ __forceinline__ float norm16_int8(const int8_t* p, float s, float scale) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float f = __fmul_rn(static_cast<float>(static_cast<int8_t>(w[i] >> (8 * b))), scale);
+      s = __fmaf_rn(f, f, s);
+    }
+  return s;
+}
+
+// What the two tensor-core tiles differ in: the element (PER of them a
+// 16-byte half), its zero, the norm of a staged half, the MMA and its sum,
+// and the cross product from the sum.
+template <int KIND>
+struct Tc;
+template <>
+struct Tc<BF16> {
+  using T = __nv_bfloat16;
+  using Acc = float;
+  static constexpr int PER = 8;
+  static __device__ __forceinline__ T zero() { return __float2bfloat16_rn(0.f); }
+  static __device__ __forceinline__ float norm(const T* p, float s, float) { return norm8_bf16(p, s); }
+  static __device__ __forceinline__ void mma(Acc (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+    mma_bf16(d, a, b);
+  }
+  static __device__ __forceinline__ float cross(Acc acc, float) { return acc; }
+};
+template <>
+struct Tc<INT8> {
+  using T = int8_t;
+  using Acc = int;
+  static constexpr int PER = 16;
+  static __device__ __forceinline__ T zero() { return 0; }
+  static __device__ __forceinline__ float norm(const T* p, float s, float scale) {
+    return norm16_int8(p, s, scale);
+  }
+  static __device__ __forceinline__ void mma(Acc (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+    mma_s8(d, a, b);
+  }
+  // the exact int32 cross, scaled once by q_scale * x_scale as the reference scales it
+  static __device__ __forceinline__ float cross(Acc acc, float qx) {
+    return __fmul_rn(static_cast<float>(acc), qx);
+  }
+};
+
+// staged row r, 16-byte half h, in elements (PER a half, 2 PER a row): the
+// halves of a row swizzled by (r >> 2) & 1, so an 8 x 8 b16 matrix's 8 rows
+// lie in 8 different bank quads
+template <int PER>
+__device__ __forceinline__ int tc_swz(int r, int h) { return r * 2 * PER + (h ^ ((r >> 2) & 1)) * PER; }
+
 constexpr int B_MT = UNIT / 16;  // 16-row fragments a warp
 constexpr int B_NT = B_TQ / 8;   // 8-query fragments at most
 
-// bf16 tile (see the header).  Dynamic shared memory: the ring (the
-// (tq, CN) scores over it once it is spent), the chunk's row norms, the
-// mask bits.
-__device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
-  __nv_bfloat16* ringb = reinterpret_cast<__nv_bfloat16*>(smem);  // [RING][B_TQ + CN][KS]
+// Tensor-core tile, bf16 or int8 (see the header).  Dynamic shared memory:
+// the ring (the (tq, CN) scores over it once it is spent), the chunk's row
+// norms, the mask bits.
+template <int KIND>
+__device__ void tc_tile(const Args& a, float* smem, int tile, int chunk) {
+  using C = Tc<KIND>;
+  using T = typename C::T;
+  constexpr int PER = C::PER, FS = 2 * PER;   // elements a half, a staged row
+  constexpr int STAGE = (B_TQ + CN) * FS;     // elements a ring stage
+  T* ringb = reinterpret_cast<T*>(smem);      // [RING][B_TQ + CN][FS]
   const int tqn = a.tq_exact;
   float* dist = smem;                           // [tq][CN], once the ring is spent
-  float* x2s = smem + (bf16_smem(tqn) - CN * 4 - tqn * MASK_BYTES) / 4;  // [CN]
+  float* x2s = smem + (tc_smem(tqn) - CN * 4 - tqn * MASK_BYTES) / 4;  // [CN]
   uint8_t* bits = reinterpret_cast<uint8_t*>(x2s + CN);  // [tq][MASK_BYTES]
   __shared__ TileQueries tq;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -769,15 +866,15 @@ __device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
     return;
   }
   const int ntiles = (nq + 7) / 8;
-  float acc[B_MT][B_NT][4];
+  typename C::Acc acc[B_MT][B_NT][4];
 #pragma unroll
   for (int m = 0; m < B_MT; ++m)
 #pragma unroll
     for (int n = 0; n < B_NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x);
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
+  const T* qb = static_cast<const T*>(a.q);
+  const T* xb = static_cast<const T*>(a.x);
   const int D = a.D;
   // copies (16-byte path): half tid & 1 of query row tid >> 1 and of point
   // rows (tid >> 1) + 128 i; rows past N or in a unit no query may see are
@@ -795,62 +892,64 @@ __device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
   float xn[2] = {0.f, 0.f};  // norms of rows tid and tid + 256
   float qn = 0.f;            // norm of query tid (tid < nq)
   auto stage = [&](int buf, int k0) {
-    __nv_bfloat16* Qs = ringb + buf * B_STAGE;
-    __nv_bfloat16* Xs = Qs + B_TQ * KS;
+    T* Qs = ringb + buf * STAGE;
+    T* Xs = Qs + B_TQ * FS;
     if (a.vec) {
-      const bool in_d = k0 + 8 * h < D;
+      const bool in_d = k0 + PER * h < D;
       if (tid < 2 * B_TQ) {
         const bool ok = qrow >= 0 && in_d;
-        cp_async16(Qs + b_swz(tid >> 1, h), ok ? qb + (size_t)qrow * D + k0 + 8 * h : qb, ok ? 16 : 0);
+        cp_async16(Qs + tc_swz<PER>(tid >> 1, h), ok ? qb + (size_t)qrow * D + k0 + PER * h : qb, ok ? 16 : 0);
       }
 #pragma unroll
       for (int i = 0; i < CN / 128; ++i) {
         const bool ok = xrow[i] >= 0 && in_d;
-        cp_async16(Xs + b_swz((tid >> 1) + 128 * i, h), ok ? xb + (size_t)xrow[i] * D + k0 + 8 * h : xb,
+        cp_async16(Xs + tc_swz<PER>((tid >> 1) + 128 * i, h), ok ? xb + (size_t)xrow[i] * D + k0 + PER * h : xb,
                    ok ? 16 : 0);
       }
     } else {
-      // rows of odd length: element loads, stored as they arrive
-      for (int e = tid; e < (B_TQ + CN) * KS; e += THREADS) {
-        const int r = e / KS, f = e % KS, k = k0 + f;
-        __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+      // rows not 16-byte aligned (D = 33, or an offset view): element
+      // loads, stored as they arrive
+      for (int e = tid; e < (B_TQ + CN) * FS; e += THREADS) {
+        const int r = e / FS, f = e % FS, k = k0 + f;
+        T v = C::zero();
         if (r < B_TQ) {
           if (r < nq && k < D) v = qb[(size_t)tq.qid[r] * D + k];
         } else {
           const int rr = r - B_TQ;
           if (tq.live[rr / UNIT] && row0 + rr < a.N && k < D) v = xb[(size_t)(row0 + rr) * D + k];
         }
-        Qs[b_swz(r, f >> 3) + (f & 7)] = v;
+        Qs[tc_swz<PER>(r, f / PER) + f % PER] = v;
       }
     }
     cp_async_commit();
   };
-  ring<KS>(D, stage, [&](int buf) {
-    const __nv_bfloat16* Qs = ringb + buf * B_STAGE;
-    const __nv_bfloat16* Xs = Qs + B_TQ * KS;
+  ring<FS>(D, stage, [&](int buf) {
+    const T* Qs = ringb + buf * STAGE;
+    const T* Xs = Qs + B_TQ * FS;
+    // norms: one fused chain a row in feature order (zeros past D leave it)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (!nlive[i]) continue;
       const int r = tid + THREADS * i;
-      xn[i] = norm8_bf16(Xs + b_swz(r, 0), xn[i]);
-      xn[i] = norm8_bf16(Xs + b_swz(r, 1), xn[i]);
+      xn[i] = C::norm(Xs + tc_swz<PER>(r, 0), xn[i], a.x_scale);
+      xn[i] = C::norm(Xs + tc_swz<PER>(r, 1), xn[i], a.x_scale);
     }
     if (tid < nq) {
-      qn = norm8_bf16(Qs + b_swz(tid, 0), qn);
-      qn = norm8_bf16(Qs + b_swz(tid, 1), qn);
+      qn = C::norm(Qs + tc_swz<PER>(tid, 0), qn, a.q_scale);
+      qn = C::norm(Qs + tc_swz<PER>(tid, 1), qn, a.q_scale);
     }
     if (!wlive) return;
     unsigned bq[B_NT][2];
 #pragma unroll
     for (int n = 0; n < B_NT; ++n)
-      if (n < ntiles) ldmatrix_x2(bq[n], Qs + b_swz(8 * n + (lane & 7), (lane >> 3) & 1));
+      if (n < ntiles) ldmatrix_x2(bq[n], Qs + tc_swz<PER>(8 * n + (lane & 7), (lane >> 3) & 1));
 #pragma unroll
     for (int m = 0; m < B_MT; ++m) {
       unsigned ax[4];
-      ldmatrix_x4(ax, Xs + b_swz(UNIT * warp + 16 * m + (lane & 15), lane >> 4));
+      ldmatrix_x4(ax, Xs + tc_swz<PER>(UNIT * warp + 16 * m + (lane & 15), lane >> 4));
 #pragma unroll
       for (int n = 0; n < B_NT; ++n)
-        if (n < ntiles) mma_bf16(acc[m][n], ax, bq[n]);
+        if (n < ntiles) C::mma(acc[m][n], ax, bq[n]);
     }
   });
   x2s[tid] = xn[0];
@@ -859,6 +958,7 @@ __device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
   __syncthreads();
   // lane (g, t) = (lane >> 2, lane & 3) holds rows g, g + 8 of each
   // fragment against queries 2 t, 2 t + 1; masked cells are +inf
+  const float qx = __fmul_rn(a.q_scale, a.x_scale);
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int n = 0; n < B_NT; ++n)
@@ -875,7 +975,7 @@ __device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
           const int row = UNIT * warp + 16 * m + g + 8 * hh;
           if (row >= rows) continue;
           dist[q * CN + row] = (mb >> (8 * (2 * m + hh))) & 1
-              ? exact_score(q2, acc[m][n][2 * hh + c], x2s[row], a.metric) : CUDART_INF_F;
+              ? exact_score(q2, C::cross(acc[m][n][2 * hh + c], qx), x2s[row], a.metric) : CUDART_INF_F;
         }
     }
   __syncthreads();
@@ -885,160 +985,266 @@ __device__ void bf16_tile(const Args& a, float* smem, int tile, int chunk) {
   }
 }
 
-// int8 tile: 2 x 4 register blocks of __dp4a
-// sums over words of four int8 features, staged a word at a time
-__device__ void int8_tile(const Args& a, float* dist, int tile, int chunk) {
-  __shared__ int As[W8][TQ + 1];
-  __shared__ int Bs[W8][BN + 1];
-  __shared__ float q2s[TQ];
-  __shared__ float x2s[BN];
-  __shared__ int qids[TQ];
-  __shared__ int mrow[TQ];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int first = tile * TQ;
-  const int nq = min(TQ, a.n_exact - first);
-  const int row0 = chunk * CN;
-  const int rows = min(CN, a.N - row0);
-  // scale the int32 cross once; the product rounds as the reference's
-  const float qx = __fmul_rn(a.q_scale, a.x_scale);
-  if (tid < TQ) {
-    const int qid = tid < nq ? (a.qperm ? a.qperm[first + tid] : first + tid) : -1;
-    qids[tid] = qid;
-    mrow[tid] = qid >= 0 && a.mask_row ? a.mask_row[qid] : 0;
-    q2s[tid] = qid >= 0 ? sq_norm_int8(a.q, qid, a.D, a.q_scale) : 0.f;
-  }
-  __syncthreads();
-  for (int sub = 0; sub < rows; sub += BN) {
-    // a 64-row step no query of the tile may see is not scored at all
-    int live = 0;
-    for (int e = tid; e < TQ * BN; e += THREADS) {
-      const int i = e / BN, j = e % BN;
-      if (i < nq && sub + j < rows && a.mask[(size_t)mrow[i] * a.N + row0 + sub + j]) live = 1;
-    }
-    if (!__syncthreads_or(live)) {
-      for (int e = tid; e < TQ * BN; e += THREADS) {
-        const int i = e / BN, j = e % BN;
-        if (i < nq && sub + j < rows) dist[i * CN + sub + j] = CUDART_INF_F;
-      }
-      __syncthreads();
-      continue;
-    }
-    int acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-    float xn = 0.f;
-    for (int k0 = 0; k0 < a.D; k0 += BK) {
-      for (int e = tid; e < TQ * W8; e += THREADS) {
-        const int i = e / W8, kk = e % W8, qid = qids[i];
-        As[kk][i] = load_word(a.q, qid < 0 ? 0 : qid, a.D, k0 + kk * 4, qid >= 0);
-      }
-      for (int e = tid; e < BN * W8; e += THREADS) {
-        const int j = e / W8, kk = e % W8;
-        Bs[kk][j] = load_word(a.x, (size_t)row0 + sub + j, a.D, k0 + kk * 4, sub + j < rows);
-      }
-      __syncthreads();
-      // features past D load as zeros, and a zero product leaves a sum as it is
-      if (tid < BN) {
-#pragma unroll
-        for (int kk = 0; kk < W8; ++kk) xn = norm_add(Bs[kk][tid], xn, a.x_scale);
-      }
-#pragma unroll
-      for (int kk = 0; kk < W8; ++kk) {
-        int av[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    if (tid < BN) x2s[tid] = xn;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int qi = ty * TM + i;
-      if (qi >= nq) continue;
-      const uint8_t* m = a.mask + (size_t)mrow[qi] * a.N;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int r = sub + tx * TN + j;
-        if (r >= rows) continue;
-        dist[qi * CN + r] = m[row0 + r]
-            ? exact_score(q2s[qi], __fmul_rn(static_cast<float>(acc[i][j]), qx), x2s[tx * TN + j], a.metric)
-            : CUDART_INF_F;
-      }
-    }
-    __syncthreads();
-  }
-  for (int qi = tid / 32; qi < nq; qi += WARPS) {
-    const size_t base = ((size_t)qids[qi] * a.chunks + chunk) * a.kc;
-    chunk_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
-  }
+// ---- ADC (see the header) -------------------------------------------------
+
+// W queries' LUT entries side by side: one shared load a (j, code) for all W
+template <int W>
+struct Vec;
+template <>
+struct Vec<1> { using T = float; };
+template <>
+struct Vec<2> { using T = float2; };
+
+__device__ __forceinline__ void adc_add(float* s, const float& v) { s[0] = __fadd_rn(s[0], v); }
+__device__ __forceinline__ void adc_add(float* s, const float2& v) {
+  s[0] = __fadd_rn(s[0], v.x);
+  s[1] = __fadd_rn(s[1], v.y);
 }
 
-__device__ void adc_tile(const Args& a, float* smem, int tile, int chunk) {
-  __shared__ int qids[TQ];
-  __shared__ int mrow[TQ];
-  const int tid = threadIdx.x;
-  const int first = a.n_exact + tile * a.tq_adc;
-  const int nq = min(a.tq_adc, a.Q - first);
-  const int row0 = chunk * CN;
-  const int rows = min(CN, a.N - row0);
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// entry c of each of W loaded quads, side by side
+template <int W>
+__device__ __forceinline__ typename Vec<W>::T side(const float4 (&v)[W], int c);
+template <>
+__device__ __forceinline__ float side<1>(const float4 (&v)[1], int c) { return comp(v[0], c); }
+template <>
+__device__ __forceinline__ float2 side<2>(const float4 (&v)[2], int c) {
+  return make_float2(comp(v[0], c), comp(v[1], c));
+}
+
+// Stages the tile's LUTs, once: group g of W queries as lut[g][j][c][w];
+// queries past nq are zeros.  Each step loads 4 entries of each query of a
+// group (16-byte loads) and stores them as 4 side-by-side W-entry vectors;
+// element loads where the LUTs are not 16-byte aligned.
+template <int W>
+__device__ void adc_stage_luts(const Args& a, const TileQueries& t, float* lut, int nq) {
+  using V = typename Vec<W>::T;
   const int lut_len = a.M * a.K;
-  float* dist = smem;                                   // [tq_adc][CN]
-  float* lut = dist + a.tq_adc * CN;                    // [tq_adc][M][K]
-  uint8_t* codes = reinterpret_cast<uint8_t*>(lut + (size_t)a.tq_adc * lut_len);  // [CN][M]
-  if (tid < nq) {
-    qids[tid] = a.qperm ? a.qperm[first + tid] : first + tid;
-    mrow[tid] = a.mask_row ? a.mask_row[qids[tid]] : 0;
-  }
-  __syncthreads();
-  for (int i = 0; i < nq; ++i) {
-    const float* src = a.luts + (size_t)qids[i] * lut_len;
-    for (int e = tid; e < lut_len; e += THREADS) lut[i * lut_len + e] = src[e];
-  }
-  const uint8_t* csrc = a.codes + (size_t)row0 * a.M;
-  for (int e = tid; e < rows * a.M; e += THREADS) codes[e] = csrc[e];
-  __syncthreads();
-  for (int r = tid; r < rows; r += THREADS) {
-    for (int i = 0; i < nq; ++i) {
-      dist[i * CN + r] = a.mask[(size_t)mrow[i] * a.N + row0 + r]
-          ? adc_score(lut + i * lut_len, codes + r * a.M, a.M, a.K)
-          : CUDART_INF_F;
+  const int groups = (nq + W - 1) / W;
+  if (a.lut_vec) {
+    // 4 steps a thread in flight at once
+    const int n4 = lut_len / 4, total = groups * n4;
+    for (int e0 = threadIdx.x; e0 < total; e0 += 4 * THREADS) {
+      float4 v[4][W];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * THREADS, g = e / n4, c4 = e - g * n4;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const int q = g * W + w;
+          v[u][w] = e < total && q < nq
+              ? __ldg(reinterpret_cast<const float4*>(a.luts + (size_t)t.qid[q] * lut_len) + c4)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * THREADS, g = e / n4, c4 = e - g * n4;
+        if (e >= total) break;
+        V* dst = reinterpret_cast<V*>(lut) + (size_t)g * lut_len + 4 * c4;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dst[c] = side<W>(v[u], c);
+      }
     }
-  }
-  __syncthreads();
-  for (int qi = tid / 32; qi < nq; qi += WARPS) {
-    const size_t base = ((size_t)qids[qi] * a.chunks + chunk) * a.kc;
-    chunk_select(dist + qi * CN, rows, a.kc, row0, a.part_d + base, a.part_i + base);
+  } else {
+    for (int e = threadIdx.x; e < groups * W * lut_len; e += THREADS) {
+      const int w = e % W, jc = (e / W) % lut_len, q = (e / (W * lut_len)) * W + w;
+      lut[e] = q < nq ? a.luts[(size_t)t.qid[q] * lut_len + jc] : 0.f;
+    }
   }
 }
 
-// KIND is the exact flavor's element kind; launches with ADC queries (f32
-// only) take the ADC form.  The int8 tile (EXACT_SMEM) fits three blocks an
-// SM and is held to their 80 registers; the f32 and bf16 tiles (74 KB of
-// shared memory at most) are held to 128 registers, two blocks an SM (the
-// f32 tile's 64 sums need them); an ADC tile's
-// shared memory leaves room for one block, which may take all the registers
-// it wants (A/B on the H100 in PERF.md).
+// Scores the batch's listed rows for every query of the tile.  Listed row
+// f of the batch (chunk b, position i of its list) is one thread's: for
+// each group of W queries its m codes come in 16 at a time (one 16-byte
+// load, code_vecs of them; rolled, so 16 lookups' loads are in flight and
+// the select's registers are not crowded) or a byte at a time; a group's
+// sums are adds in subquantizer order from 0, as the plain version's; a
+// query whose mask drops the row gets +inf, and a group with no such query
+// is not summed.  Scores land at dist[(b tq + q) CN + i].
+template <int W>
+__device__ void adc_score(const Args& a, const TileQueries& t, const float* lut, const uint8_t* bits,
+                          const uint16_t* rows, const int* start, float* dist, int nq, int c0, int nb) {
+  using V = typename Vec<W>::T;
+  const int M = a.M, K = a.K, tq = a.tq_adc, lut_len = M * K;
+  const int groups = (nq + W - 1) / W;
+  const V* lv = reinterpret_cast<const V*>(lut);
+#pragma unroll 1
+  for (int f = threadIdx.x; f < start[nb]; f += THREADS) {
+    int b = 0;
+    while (b + 1 < nb && start[b + 1] <= f) ++b;
+    const int i = f - start[b], r = rows[b * CN + i];
+    const uint8_t* code = a.codes + ((size_t)(c0 + b) * CN + r) * M;
+    const uint8_t* rb = bits + b * tq * MASK_BYTES + (r >> 3);
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      bool ok[W];
+      bool any = false;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int q = g * W + w;
+        ok[w] = q < nq && ((rb[t.slot[q] * MASK_BYTES] >> (r & 7)) & 1);
+        any = any || ok[w];
+      }
+      float s[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) s[w] = 0.f;
+      if (any) {
+        const V* lg = lv + (size_t)g * lut_len;
+        if (a.code_vecs > 0) {
+#pragma unroll 1
+          for (int v = 0; v < a.code_vecs; ++v) {
+            const uint4 c4 = __ldg(reinterpret_cast<const uint4*>(code) + v);
+            const unsigned word[4] = {c4.x, c4.y, c4.z, c4.w};
+            const V* lj = lg + 16 * v * K;
+#pragma unroll
+            for (int c = 0; c < 16; ++c) adc_add(s, lj[c * K + ((word[c / 4] >> (8 * (c % 4))) & 0xffu)]);
+          }
+        } else {
+          for (int j = 0; j < M; ++j) adc_add(s, lg[j * K + __ldg(code + j)]);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int q = g * W + w;
+        if (q < nq) dist[(b * tq + q) * CN + i] = ok[w] ? s[w] : CUDART_INF_F;
+      }
+    }
+  }
+}
+
+// One batch of a tile's work, the chunks [c0, c0 + nb): the mask bits of
+// each chunk for each distinct mask row of the tile; each chunk's list of
+// the rows some query of the tile may see, ascending; those rows scored;
+// then one warp a (chunk, query) list selects over the compacted list
+// (chunk_select with its row map), every warp busy when nb tq >= WARPS.
+// Dynamic shared memory (adc_smem): the LUTs, then for each chunk of a
+// batch its scores, its row list and its mask bits.
+__device__ void adc_batch(const Args& a, const TileQueries& t, float* smem, int nq, int batch) {
+  __shared__ uint64_t ub[WARPS][UNITS];  // the tile's union of bits, by chunk and unit
+  __shared__ int ubase[WARPS][UNITS];    // a unit's first position in its chunk's list
+  __shared__ int live[WARPS], start[WARPS + 1];
+  const int tid = threadIdx.x, tq = a.tq_adc;
+  const float* lut = smem;
+  float* dist = smem + ((size_t)tq * a.M * a.K + 3) / 4 * 4;
+  uint16_t* rows = reinterpret_cast<uint16_t*>(dist + (size_t)a.b_adc * tq * CN);
+  uint8_t* bits = reinterpret_cast<uint8_t*>(rows + (size_t)a.b_adc * CN);
+  const int c0 = batch * a.b_adc, nb = min(a.b_adc, a.chunks - c0);
+  // every chunk's bits at once: bits[b][slot][MASK_BYTES]
+#pragma unroll 1
+  for (int e = tid; e < nb * nq * MASK_BYTES; e += THREADS) {
+    const int b = e / (nq * MASK_BYTES), i = (e / MASK_BYTES) % nq, w = e % MASK_BYTES;
+    const int row0 = (c0 + b) * CN;
+    if (t.slot[i] == i) bits[(b * tq + i) * MASK_BYTES + w] = mask_byte(a, t, i, w, row0, min(CN, a.N - row0));
+  }
+  __syncthreads();
+  if (tid < nb * UNITS) {
+    const int b = tid / UNITS, u = tid % UNITS;
+    uint64_t m = 0;
+    for (int q = 0; q < nq; ++q) m |= unit_bits(t, bits + b * tq * MASK_BYTES, q, u);
+    ub[b][u] = m;
+    ubase[b][u] = __popcll(m);
+  }
+  __syncthreads();
+  if (tid < nb) {
+    int s = 0;
+    for (int u = 0; u < UNITS; ++u) {
+      const int c = ubase[tid][u];
+      ubase[tid][u] = s;
+      s += c;
+    }
+    live[tid] = s;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int s = 0;
+    for (int b = 0; b < nb; ++b) {
+      start[b] = s;
+      s += live[b];
+    }
+    start[nb] = s;
+  }
+#pragma unroll 1
+  for (int e = tid; e < nb * CN; e += THREADS) {
+    const int b = e / CN, r = e % CN, u = r / UNIT, j = r % UNIT;
+    const uint64_t m = ub[b][u];
+    if ((m >> j) & 1)
+      rows[b * CN + ubase[b][u] + __popcll(m & ((1ull << j) - 1))] = static_cast<uint16_t>(r);
+  }
+  __syncthreads();
+  if (a.w_adc == 2) adc_score<2>(a, t, lut, bits, rows, start, dist, nq, c0, nb);
+  else adc_score<1>(a, t, lut, bits, rows, start, dist, nq, c0, nb);
+  __syncthreads();
+#pragma unroll 1
+  for (int l = tid >> 5; l < nb * nq; l += WARPS) {
+    const int b = l / nq, q = l % nq;
+    const size_t base = ((size_t)t.qid[q] * a.chunks + c0 + b) * a.kc;
+    chunk_select<true>(dist + (b * tq + q) * CN, live[b], a.kc, (c0 + b) * CN, a.part_d + base,
+                       a.part_i + base, rows + b * CN);
+  }
+  __syncthreads();  // the next batch reuses the bits, lists and scores
+}
+
+// ADC block blk of blocks_adc: a contiguous share of the (tile, batch)
+// items, tile-major, so it stages a tile's LUTs once for every batch of
+// that tile it takes.  The walk's state lives in shared memory and is read
+// after each barrier, so no register holds it across the select.
+__device__ void adc_block(const Args& a, float* smem, int blk) {
+  __shared__ TileQueries t;
+  __shared__ long long walk[2];  // the next item, the end of the share
+  __shared__ int staged[2];      // the tile whose LUTs are staged, its query count
+  if (threadIdx.x == 0) {
+    const long long items = (long long)a.tiles_adc * a.batches_adc;
+    walk[0] = items * blk / a.blocks_adc;
+    walk[1] = items * (blk + 1) / a.blocks_adc;
+    staged[0] = -1;
+  }
+  __syncthreads();
+  for (;;) {
+    const long long it = walk[0];
+    if (it >= walk[1]) return;
+    const int tile = static_cast<int>(it / a.batches_adc);
+    if (tile != staged[0]) {
+      const int first = a.n_exact + tile * a.tq_adc;
+      const int nq = min(a.tq_adc, a.Q - first);
+      tile_queries(a, t, first, nq);
+      if (a.w_adc == 2) adc_stage_luts<2>(a, t, smem, nq);
+      else adc_stage_luts<1>(a, t, smem, nq);
+      if (threadIdx.x == 0) {
+        staged[0] = tile;
+        staged[1] = nq;
+      }
+      __syncthreads();
+    }
+    adc_batch(a, t, smem, staged[1], static_cast<int>(it - (long long)tile * a.batches_adc));
+    if (threadIdx.x == 0) walk[0] = it + 1;
+    __syncthreads();
+  }
+}
+
+// Pass 1.  KIND is the exact flavor's element kind; launches with ADC
+// queries (f32 only) take the ADC form: the exact tiles at blockIdx.x <
+// tiles_exact (chunk blockIdx.y), then cols_adc columns of ADC blocks that
+// walk the (tile, batch) items, so a unified call's two flavors share one
+// grid.  Each template is held to two blocks an SM (128 registers): the
+// f32 tile's 64 sums need them, the tensor-core tiles' 32 sums and the
+// select fit them without spilling (at three, 80 registers, the select
+// spills), and the ADC footprint (ADC_BUDGET) leaves the unified launch's
+// f32 tiles their two.  ptxas (-Xptxas -v, CUDA 12.8): 128 registers and no
+// spill in each template (PERF.md §6).
 template <int KIND, bool ADC>
-__global__ void __launch_bounds__(THREADS, ADC ? 1 : KIND == INT8 ? 3 : 2) chunk_topk_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS, ADC ? ADC_BLOCKS : KIND == F32 ? F32_BLOCKS : TC_BLOCKS)
+chunk_topk_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x;
   if (tile < a.tiles_exact) {
     if constexpr (KIND == F32) f32_tile(a, smem, tile, blockIdx.y);
-    else if constexpr (KIND == BF16) bf16_tile(a, smem, tile, blockIdx.y);
-    else int8_tile(a, smem, tile, blockIdx.y);
+    else tc_tile<KIND>(a, smem, tile, blockIdx.y);
   } else if constexpr (ADC) {
-    adc_tile(a, smem, tile - a.tiles_exact, blockIdx.y);
+    adc_block(a, smem, blockIdx.y * a.cols_adc + tile - a.tiles_exact);
   }
 }
 
@@ -1135,13 +1341,14 @@ const char* kernel_error_string(int code) {
 // rows per chunk: the wrapper sizes the (Q, chunks, kc) scratch with it
 int masked_topk_chunk_rows() { return CN; }
 
-// ADC queries per tile for (M, K); 0 when one query's LUT does not fit
+// ADC queries a tile for (M, K): the largest of 8, 4, 2 or 1 whose LUTs
+// (and one chunk's scores, list and bits) fit ADC_BUDGET; one where a
+// single LUT needs more, up to the ceiling; 0 where it does not fit
 int masked_topk_adc_tile(int M, int K) {
-  const long long per_q = (long long)M * K * 4 + (long long)CN * 4;  // LUT + scores
-  const long long room = (long long)ADC_SMEM - (long long)CN * M;    // after the codes
-  if (M <= 0 || K <= 0 || per_q > room) return 0;
-  const long long t = room / per_q;
-  return (int)(t < TQ ? t : TQ);
+  if (M <= 0 || K <= 0) return 0;
+  for (int tq = ADC_TQ; tq >= 1; tq /= 2)
+    if (adc_smem(tq, 1, M, K) <= (size_t)ADC_BUDGET) return tq;
+  return adc_smem(1, 1, M, K) <= (size_t)CHUNK_SMEM ? 1 : 0;
 }
 
 // Masked top-k over Q queries.  qperm[0, n_exact) score exact (q, x), the
@@ -1165,40 +1372,72 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   a.Q = Q; a.N = N; a.D = D; a.M = M; a.K = K; a.metric = metric; a.n_exact = n_exact;
   a.chunks = (N + CN - 1) / CN;
   a.kc = k < CN ? k : CN;
-  // 16-byte copies where every row starts 16-byte aligned (4 f32 or 8 bf16
-  // values); 8-byte mask loads where every mask row starts 8-byte aligned
-  const int per16 = kind == BF16 ? 8 : 4;
+  // 16-byte copies where every row starts 16-byte aligned (4 f32, 8 bf16 or
+  // 16 int8 values); 8-byte mask loads where every mask row starts 8-byte
+  // aligned
+  const int per16 = kind == F32 ? 4 : kind == BF16 ? 8 : 16;
   a.vec = D % per16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.mask_vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(mask) % 8 == 0;
-  // bf16 queries a tile: the largest of 16, 8, 4 that still gives every SM
-  // a block (N = 4,096, Q = 100: 4, 200 blocks)
-  a.tq_exact = TQ;
-  if (kind == BF16) {
-    a.tq_exact = B_TQ;
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // bf16 / int8 queries a tile: the largest of 16, 8, 4 that still gives
+  // every SM a block (N = 4,096, Q = 100: 4, 200 blocks)
+  a.tq_exact = kind == F32 ? TQ : B_TQ;
+  if (kind != F32)
     while (a.tq_exact > 4 && (long long)((n_exact + a.tq_exact - 1) / a.tq_exact) * a.chunks < sms)
       a.tq_exact /= 2;
-  }
   a.tiles_exact = (n_exact + a.tq_exact - 1) / a.tq_exact;
   const int n_adc = Q - n_exact;
-  size_t smem = 0;
-  if (a.tiles_exact > 0)
-    smem = kind == F32 ? (size_t)F_SMEM : kind == BF16 ? (size_t)bf16_smem(a.tq_exact) : (size_t)EXACT_SMEM;
-  a.tq_adc = 1;
-  int tiles_adc = 0;
+  // The ceiling is one value per process and executors launch from several
+  // threads, so every call sets the same fixed ceilings: a launch's own size
+  // never lowers another thread's between its set and its launch.
+  void (*kern)(Args) = n_adc > 0 ? chunk_topk_kernel<F32, true>
+                       : kind == F32 ? chunk_topk_kernel<F32, false>
+                       : kind == BF16 ? chunk_topk_kernel<BF16, false> : chunk_topk_kernel<INT8, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, CHUNK_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (a.chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = a.tiles_exact == 0 ? 0 : kind == F32 ? (size_t)F_SMEM : (size_t)tc_smem(a.tq_exact);
+  unsigned gx = a.tiles_exact, gy = a.chunks;
+  a.tq_adc = a.w_adc = a.b_adc = 1;
+  a.tiles_adc = a.batches_adc = a.blocks_adc = a.cols_adc = a.code_vecs = 0;
+  a.lut_vec = false;
   if (n_adc > 0) {
     a.tq_adc = masked_topk_adc_tile(M, K);
     if (a.tq_adc <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    tiles_adc = (n_adc + a.tq_adc - 1) / a.tq_adc;
-    const size_t adc = (size_t)a.tq_adc * CN * sizeof(float) +
-                       (size_t)a.tq_adc * M * K * sizeof(float) + (size_t)CN * M;
-    if (adc > smem) smem = adc;
+    a.w_adc = a.tq_adc < 2 ? 1 : 2;
+    a.lut_vec = (M * K) % 4 == 0 && reinterpret_cast<uintptr_t>(luts) % 16 == 0;
+    a.code_vecs = M % 16 == 0 && M <= 64 && reinterpret_cast<uintptr_t>(codes) % 16 == 0 ? M / 16 : 0;
+    a.tiles_adc = (n_adc + a.tq_adc - 1) / a.tq_adc;
+    // chunks a batch: enough (chunk, query) lists for every warp's select,
+    // within the footprint, and few enough that every block slot on the
+    // card still gets a batch (N = 4,096, Q = 100: 1; one 250k shard: 4)
+    const size_t room = adc_smem(a.tq_adc, 1, M, K) > (size_t)ADC_BUDGET ? adc_smem(a.tq_adc, 1, M, K)
+                                                                          : (size_t)ADC_BUDGET;
+    int nb = WARPS / a.tq_adc > 1 ? WARPS / a.tq_adc : 1;
+    while (nb > 1 && adc_smem(a.tq_adc, nb, M, K) > room) --nb;
+    while (nb > 1 && (long long)a.tiles_adc * ((a.chunks + nb - 1) / nb) < (long long)sms * ADC_BLOCKS) --nb;
+    a.b_adc = nb;
+    a.batches_adc = (a.chunks + nb - 1) / nb;
+    const size_t adc_bytes = adc_smem(a.tq_adc, nb, M, K);
+    if (adc_bytes > smem) smem = adc_bytes;
+    // one block a slot of the card (blocks an SM as the occupancy
+    // calculator gives them), each a contiguous share of the items; in a
+    // unified launch the ADC blocks take columns past the exact tiles'
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long items = (long long)a.tiles_adc * a.batches_adc;
+    long long blocks = (long long)sms * (per_sm > 1 ? per_sm : 1);
+    if (blocks > items) blocks = items;
+    gy = a.tiles_exact > 0 ? a.chunks : 1;
+    a.cols_adc = static_cast<int>((blocks + gy - 1) / gy);
+    a.blocks_adc = a.cols_adc * static_cast<int>(gy);
+    gx = a.tiles_exact + a.cols_adc;
   }
-  if (a.chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // Pass 2's warps: one list a lane where 16 warps reach (489 chunks of a
   // 250k-row shard: 16 warps), fewer where the streams (warps k 8 bytes)
   // would not fit; one warp needs no streams, only the heads of its lists
@@ -1211,17 +1450,7 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   while (mw > 1 && merge_bytes(mw) > (size_t)MERGE_SMEM) --mw;
   const size_t msmem = merge_bytes(mw);
   if (msmem > (size_t)MERGE_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  // The ceiling is one value per process and executors launch from several
-  // threads, so every call sets the same fixed ceilings: a launch's own size
-  // never lowers another thread's between its set and its launch.
-  void (*kern)(Args) = n_adc > 0 ? chunk_topk_kernel<F32, true>
-                       : kind == F32 ? chunk_topk_kernel<F32, false>
-                       : kind == BF16 ? chunk_topk_kernel<BF16, false> : chunk_topk_kernel<INT8, false>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       CHUNK_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(a.tiles_exact + tiles_adc, a.chunks);
-  kern<<<grid, THREADS, smem, stream>>>(a);
+  kern<<<dim3(gx, gy), THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaFuncSetAttribute(merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MERGE_SMEM);

@@ -579,3 +579,72 @@ def test_cuda_f32_tile_unaligned_mask_rows(cuda):
         want = ops.masked_exact_topk_multi(qq, x, p, 51, backend="ref")
         torch.cuda.synchronize()
         _assert_topk_near_ties([a.cpu() for a in got], [a.cpu() for a in want], _atol(Q, X))
+
+
+# -- the ADC tile's shapes (card only) ------------------------------------------
+# An ADC block stages the LUTs of a tile of 8, 4, 2 or 1 queries once (the
+# tile's size from (m, K): 2 at m = 32, K = 256; 1 at 64 KB a LUT), then
+# scores and selects batches of chunks, each chunk's rows that some query
+# of the tile may see listed first; codes go to registers as 16-byte
+# vectors where m is 16, 32, 48 or 64 and the codes are aligned, else a
+# byte at a time.
+
+# (m, K): a tiny LUT (8-query tiles), the main path's, a 64 KB LUT (one
+# query a tile), and m not a multiple of 16 (byte codes)
+ADC_MK = [(8, 16), (32, 256), (64, 256), (20, 256)]
+
+
+@pytest.mark.parametrize("m, kc", ADC_MK)
+@pytest.mark.parametrize("n", [511, 2047, 2049, 20000])
+def test_cuda_adc_tile_matches_plain_bit_for_bit(cuda, m, kc, n):
+    """N inside one chunk, either side of a run of chunks and over many
+    batches (20,000 rows: batches of several chunks, the last one short);
+    a row mask, the dense plane and the dedup'd plane with units full,
+    empty and sparse; codes aligned and at an odd offset; k from 1 to past
+    the chunk: the plain version's bits, and the unified launch's ADC and
+    exact rows the split kernels' bits."""
+    q = 37
+    rng = np.random.default_rng(m * 31 + kc + n)
+    luts = rng.random((q, m, kc)).astype(np.float32)
+    codes = rng.integers(0, kc, size=(n, m)).astype(np.uint8)
+    Q = rng.normal(size=(q, 16)).astype(np.float32)
+    X = rng.normal(size=(n, 16)).astype(np.float32)
+    plane = _unit_mask(q, n, rng)
+    row = _unit_mask(1, n, rng, shift=False)[0]
+    unique, idx = _dedup(plane, q + n)
+    lt, c, mrow, p, u, i, qq, x, f = _on(cuda, luts, codes, row, plane, unique, idx, Q, X,
+                                         _flavors(q, "mixed"))
+    odd = torch.empty(n * m + 1, dtype=torch.uint8, device=cuda)[1:].view(n, m)
+    odd.copy_(c)
+    assert odd.data_ptr() % 16
+    rows = torch.arange(q, dtype=torch.int32, device=cuda)
+    for k in (1, 40, 160, 600):
+        for cc in (c, odd):
+            for fn, args in ((ops.masked_pq_topk, (lt, cc, mrow)), (ops.masked_pq_topk_multi, (lt, cc, p)),
+                             (ops.masked_pq_topk_dedup, (lt, cc, u, i))):
+                got = fn(*args, k)
+                want = fn(*args, k, backend="ref")
+                torch.cuda.synchronize()
+                assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), (fn.__name__, k)
+                assert torch.equal(got[1], want[1]), (fn.__name__, k)
+        got = ops.unified_masked_topk(qq, x, lt, c, p, f, k)
+        ex = kmasked.masked_exact_topk(qq, x, p.to(torch.uint8), rows, k)
+        pq = kmasked.masked_pq_topk(lt, c, p.to(torch.uint8), rows, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], torch.where(f[:, None], pq[0], ex[0]))
+        assert torch.equal(got[1], torch.where(f[:, None], pq[1], ex[1]))
+
+
+@pytest.mark.parametrize("m, kc", [(64, 256), (132, 256)])
+def test_cuda_adc_large_luts_still_launch(cuda, m, kc):
+    """A LUT past the tile's budget (64 KB, and m = 132, the largest m at
+    K = 256 that the tile took before its rebuild) gets a one-query tile
+    and launches: the plain version's bits."""
+    rng = np.random.default_rng(m)
+    luts = rng.random((3, m, kc)).astype(np.float32)
+    codes = rng.integers(0, kc, size=(1300, m)).astype(np.uint8)
+    lt, c, p = _on(cuda, luts, codes, rng.random((3, 1300)) < 0.5)
+    got = ops.masked_pq_topk_multi(lt, c, p, 40)
+    want = ops.masked_pq_topk_multi(lt, c, p, 40, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -433,12 +433,12 @@ def test_cuda_quantized_select_edges_match_plain(cuda, case, dtype, metric):
             assert got[1][qi].tolist() == passing + [-1] * (k - len(passing)), (fn.__name__, qi)
 
 
-# -- the bf16 tile's shapes (card only) -----------------------------------------
-# The bf16 tile scores on the tensor cores (mma.sync m16n8k16): a warp a
-# 64-row unit of a 512-row chunk against every 8-query fragment of a tile
-# of 4 to 32 queries (the launch picks it from Q and N), features
-# zero-padded to the next 16; a unit no query of the tile may see is
-# skipped.
+# -- the tensor-core tiles' shapes (card only) ---------------------------------
+# The bf16 and int8 tiles score on the tensor cores (mma.sync m16n8k16 for
+# bf16, m16n8k32 for int8): a warp a 64-row unit of a 512-row chunk against
+# every 8-query fragment of a tile of 16, 8 or 4 queries (the launch picks
+# it from Q and N), features zero-padded to the next 16 (bf16) or 32 (int8);
+# a unit no query of the tile may see is skipped.
 
 
 def _unit_mask(q, n, rng, shift=True):
@@ -451,13 +451,14 @@ def _unit_mask(q, n, rng, shift=True):
 
 @pytest.mark.parametrize("q", [1, 8, 100, 129])
 @pytest.mark.parametrize("d", [8, 33, 128])
-@pytest.mark.parametrize("n", [64, 65, 1000, 4096])
+@pytest.mark.parametrize("n", [64, 65, 1000, 4096, 20000])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_cuda_quantized_tile_shapes_match_plain(cuda, q, d, n, dtype, metric):
-    """Q across the tile sizes, D = 8 and 33 (padded to 16, unaligned rows)
-    and 128, N either side of the 64-row unit and past the 512-row chunk
-    (4,096: the phase-7 shard, where the bf16 launch takes 4-query tiles);
+    """Q across the tile sizes, D = 8 and 33 (padded to the stage, unaligned
+    rows) and 128, N either side of the 64-row unit and past the 512-row
+    chunk (4,096: the phase-7 shard, where the launch takes 4-query tiles;
+    20,000: 16-query tiles at Q = 100 and 129);
     row mask, dense and dedup'd plane with units full, empty and sparse;
     k from 1 to past the chunk: within the plain version's tolerance, ids
     equal outside ties."""
