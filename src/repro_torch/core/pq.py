@@ -10,6 +10,8 @@ dense ADC scan (the ``pq_scan`` kernel on the card).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -143,3 +145,15 @@ def adc_scores(
     if isinstance(codes, np.ndarray):
         codes = to_device(codes, dev, torch.uint8)
     return ops.pq_scan(luts, codes.to(dev), backend=backend)
+
+
+def reconstruction_error(
+    pq: PQCodebook, vectors: np.ndarray, sample: Optional[int] = 4096, *, device="cuda"
+) -> float:
+    """Mean squared PQ reconstruction error (quality diagnostic); the
+    encoding runs on ``device``."""
+    if sample and vectors.shape[0] > sample:
+        rng = np.random.default_rng(0)
+        vectors = vectors[rng.choice(vectors.shape[0], sample, replace=False)]
+    approx = decode(pq, encode(pq, vectors, device=device))
+    return float(np.mean(np.sum((vectors - approx) ** 2, axis=1)))

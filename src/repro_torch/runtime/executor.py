@@ -24,7 +24,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -725,7 +725,15 @@ class Executor:
         return dists, ids
 
     # -- dispatch ------------------------------------------------------------
-    def handle(self, task) -> object:
+    def handle(self, task, *, wanted: Optional[Callable[[], bool]] = None) -> object:
+        """Run one task.  ``wanted`` (the scheduler's "is this fragment still
+        open?") is asked after the failure gates: a straggler whose wave was
+        won by another attempt while it slept returns None without computing.
+        A torch op still running in a daemon thread when the interpreter
+        exits aborts the process (the op's tensor release takes the GIL
+        inside a ``noexcept`` destructor, and the exiting interpreter answers
+        with ``pthread_exit``), so an attempt whose fragment is already done
+        does not start computing."""
         self._gate()
         if self._kill_mid_task > 0:
             self._kill_mid_task -= 1
@@ -733,6 +741,8 @@ class Executor:
             if self._kill_hold_s > 0:
                 time.sleep(self._kill_hold_s)
             raise ExecutorDead(self.executor_id)
+        if wanted is not None and not wanted():
+            return None
         if isinstance(task, F.ScanPartitionTaskInfo):
             result = self._scan_partition(task)
         elif isinstance(task, F.IndexBuildTaskInfo):

@@ -12,7 +12,9 @@ Responsibilities (DESIGN.md §6):
 - **Straggler mitigation** — speculative backup tasks: once half the wave is
   done, any task running longer than ``speculation_factor ×`` the median
   completed latency is duplicated onto an idle executor; first finisher
-  wins, the loser's (identical) output is harmlessly overwritten / orphaned.
+  wins, the loser's (identical) output is dropped.  The wave returns once
+  a loser that is computing has finished (one still asleep in a failure
+  gate is left there: past the gate it computes nothing).
 - **Elasticity** — executors can be added/removed between (or during)
   waves; the dispatch loop only consults the live set.
 - **Leased placement** — shard→executor affinity is explicit, expiring
@@ -93,9 +95,14 @@ class _Attempt:
     thread: threading.Thread
     started: float
     speculative: bool = False
-    # set once this attempt's fragment has been re-dispatched elsewhere
-    # (its executor died mid-wave); keeps the monitor from requeueing twice
+    # set, under the wave's lock, once this attempt's fragment has been
+    # re-dispatched elsewhere (its executor died mid-wave), by the monitor
+    # or by the attempt's own ``ExecutorDead``: whichever comes second
+    # requeues nothing
     abandoned: bool = False
+    # set, under the wave's lock, once the attempt passed its executor's
+    # failure gates with its fragment still open: it now runs torch ops
+    computing: bool = False
 
 
 class Scheduler:
@@ -151,9 +158,14 @@ class Scheduler:
         lock = threading.Lock()
         errors: List[str] = []
 
+        def start(att: _Attempt) -> bool:
+            with lock:
+                att.computing = not done[att.task_index]
+                return att.computing
+
         def run_one(idx: int, executor: Executor, speculative: bool, attempt_obj: list):
             try:
-                out = executor.handle(tasks[idx])
+                out = executor.handle(tasks[idx], wanted=lambda: start(attempt_obj[0]))
                 with lock:
                     if not done[idx]:
                         done[idx] = True
@@ -167,12 +179,19 @@ class Scheduler:
                     self.leases.expire_holder(executor.executor_id)
                 with lock:
                     self.stats.failures_seen += 1
+                    att = attempt_obj[0]
                     if not done[idx]:
                         attempts_count[idx] += 1
                         if attempts_count[idx] >= self.max_attempts:
                             errors.append(f"task {idx} failed {attempts_count[idx]}x: {exc!r}")
                             done[idx] = True  # give up; surfaced below
-                        else:
+                        elif not att.abandoned:
+                            # a death the monitor already re-dispatched is
+                            # not requeued again: that third attempt would
+                            # still be computing torch ops when the wave
+                            # returns, and a torch op in a thread that the
+                            # interpreter's exit catches aborts the process
+                            att.abandoned = True
                             self.stats.reassigned += 1
                             if isinstance(exc, ExecutorDead):
                                 self.stats.redispatches += 1
@@ -230,11 +249,11 @@ class Scheduler:
                     )
                     inflight.remove(att)
                 elif not att.abandoned and not att.executor.heartbeat():
-                    att.abandoned = True
                     self.leases.expire_holder(att.executor.executor_id)
                     with lock:
-                        if done[att.task_index]:
+                        if att.abandoned or done[att.task_index]:
                             continue
+                        att.abandoned = True
                         self.stats.redispatches += 1
                     self.metrics.counter("redispatches").inc()
                     pending.put(att.task_index)
@@ -293,6 +312,16 @@ class Scheduler:
                                 self.stats.speculative += 1
                                 th.start()
             time.sleep(self.poll_interval)
+        # A wave owns the threads it starts.  A loser still running torch
+        # ops (a speculative pair's slower half, or an attempt whose
+        # executor was declared dead while it computed) is waited for: a
+        # torch op still running when the interpreter exits aborts the
+        # process.  An attempt still in a failure gate (a straggler's
+        # delay, a held kill) is not: past the gate it computes nothing.
+        with lock:
+            losers = [att.thread for att in inflight if att.computing]
+        for th in losers:
+            th.join()
         if errors:
             raise RuntimeError("; ".join(errors))
         return results  # type: ignore[return-value]

@@ -7,7 +7,10 @@ loses no query: every query returns hits at parity with a healthy run,
 because the scheduler's lease monitor re-dispatches the held fragments.
 """
 
-import threading
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,32 +19,10 @@ torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.chaos
 
-
-@pytest.fixture(scope="module")
-def built_cluster(tmp_path_factory):
-    """The port's twin of conftest's ``built_cluster`` (table "emb", index
-    "idx"), built by the port on the CPU; it overrides that fixture in this
-    module.  Teardown joins the attempts a kill left running: the wave
-    returns while the dead executor still holds its fragment, and the port's
-    process, exiting with that thread alive, aborts ("terminate called
-    without an active exception")."""
-    from conftest import BUILT_CFG, clustered_vectors
-    from repro_torch.lakehouse.table import LakehouseTable
-    from repro_torch.runtime.cluster import make_local_cluster
-    from repro_torch.runtime.coordinator import IndexConfig
-
-    rng = np.random.default_rng(0)
-    c = make_local_cluster(str(tmp_path_factory.mktemp("cluster")), num_executors=3, device="cpu")
-    t = LakehouseTable(c.catalog, "emb")
-    t.create(dim=32)
-    X, centers = clustered_vectors(rng, n_clusters=24, per_cluster=80, dim=32)
-    t.append_vectors(X, num_files=9, rows_per_group=128)
-    rep = c.coordinator.create_index("emb", IndexConfig(name="idx", **BUILT_CFG))
-    before = set(threading.enumerate())
-    yield c, t, X, centers, rep
-    for th in set(threading.enumerate()) - before:
-        th.join(timeout=30)
-        assert not th.is_alive(), th
+# ``built_cluster``: the port's twin of conftest's (table "emb", index
+# "idx").  Nothing joins the attempts a kill leaves asleep: they may
+# outlive their wave and this module (``test_exit_with_held_attempt_alive``).
+from _torch_cpu import built_cluster  # noqa: E402,F401
 
 
 def _locs(hits):
@@ -86,6 +67,25 @@ def test_kill_executor_mid_wave_loses_no_queries(built_cluster):
     # the dead executor held (and lost) its only task: it served nothing
     assert chaos.served_by, "probe report must carry placement provenance"
     assert all(not e.endswith(f"@{doomed.executor_id}") for e in chaos.served_by)
+
+
+def test_held_fragment_is_redispatched_once(built_cluster):
+    """One death mid-wave re-dispatches its fragment once: the lease monitor
+    and the held attempt's own ``ExecutorDead`` both see it, and only the
+    first requeues (the second used to start a third attempt that was still
+    computing when the wave returned)."""
+    c, t, X, centers, rep = built_cluster
+    stats = c.coordinator.scheduler.stats
+    healthy = c.coordinator.probe_batch("emb", X[16:24], 5, strategy="diskann")
+    doomed = c.executors[1]
+    base = stats.redispatches
+    try:
+        doomed.kill_next(1, hold_s=0.05)
+        chaos = c.coordinator.probe_batch("emb", X[16:24], 5, strategy="diskann")
+    finally:
+        doomed.revive()
+    _assert_parity(healthy.hits, chaos.hits)
+    assert stats.redispatches - base == 1
 
 
 def test_kill_executor_mid_wave_through_micro_batcher(built_cluster):
@@ -169,3 +169,65 @@ def test_kill_executor_mid_wave_with_warm_shard_cache(built_cluster):
     for key, entry in cache.entries_snapshot():
         if key not in warm_keys:
             assert entry.served_by != doomed.executor_id
+
+
+# One wave on the chaos cluster with ``executors[1].kill_next(1, hold_s)``,
+# then exit without waiting for the held attempt.  Its thread wakes while
+# the interpreter finalizes.  The port once requeued that fragment a second
+# time when the held attempt raised ``ExecutorDead`` (the lease monitor had
+# already re-dispatched it), so a third attempt was still running torch ops
+# at exit; a torch op's tensor release takes the GIL in a ``noexcept``
+# destructor, the finalizing interpreter answers with ``pthread_exit``, and
+# the process aborted: "terminate called without an active exception".
+_EXIT_SCRIPT = """
+import sys, tempfile
+import numpy as np
+sys.path[:0] = [{tests!r}, {src!r}]
+from conftest import BUILT_CFG, clustered_vectors
+from {pkg}.lakehouse.table import LakehouseTable
+from {pkg}.runtime.cluster import make_local_cluster
+from {pkg}.runtime.coordinator import IndexConfig
+rng = np.random.default_rng(0)
+c = make_local_cluster(tempfile.mkdtemp(dir="."), num_executors=3{device})
+t = LakehouseTable(c.catalog, "emb")
+t.create(dim=32)
+X, _ = clustered_vectors(rng, n_clusters=24, per_cluster=80, dim=32)
+t.append_vectors(X, num_files=9, rows_per_group=128)
+c.coordinator.create_index("emb", IndexConfig(name="idx", **BUILT_CFG))
+c.executors[1].kill_next(1, hold_s={hold_s})
+pr = c.coordinator.probe_batch("emb", X[:8], 5, strategy="diskann")
+assert len(pr.hits) == 8
+c.executors[1].revive()
+"""
+
+EXIT_CASES = [("repro_torch", 0.02), ("repro_torch", 0.05), ("repro_torch", 0.1), ("repro", 0.05)]
+
+
+@pytest.fixture(scope="module")
+def exit_runs(tmp_path_factory):
+    """Every case of ``test_exit_with_held_attempt_alive``, its subprocess
+    started at once (each builds its own cluster, ~7 s)."""
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    procs = {}
+    for pkg, hold_s in EXIT_CASES:
+        code = _EXIT_SCRIPT.format(
+            tests=str(here), src=str(here.parent / "src"), pkg=pkg, hold_s=hold_s,
+            device=', device="cpu"' if pkg == "repro_torch" else "")
+        procs[pkg, hold_s] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=str(tmp_path_factory.mktemp("exit")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    runs = {}
+    for key, p in procs.items():
+        out, err = p.communicate(timeout=300)
+        runs[key] = (p.returncode, err)
+    return runs
+
+
+@pytest.mark.parametrize("pkg,hold_s", EXIT_CASES)
+def test_exit_with_held_attempt_alive(exit_runs, pkg, hold_s):
+    """The process exits cleanly while a chaos-held attempt thread is alive,
+    in the port as in the reference (``repro``, the parity case)."""
+    rc, err = exit_runs[pkg, hold_s]
+    assert "terminate called" not in err, err[-2000:]
+    assert rc == 0, err[-2000:]

@@ -87,6 +87,19 @@ def test_pq_codebook_and_codes_match_reference(data):
     )
 
 
+@pytest.mark.parametrize("sample", [None, "default"])
+def test_reconstruction_error_matches_reference(sample):
+    """The same seeded codebook and 6,000 vectors (above the default sample
+    of 4,096, so that case subsamples) through both packages."""
+    rng = np.random.default_rng(11)
+    X, _ = clustered_vectors(rng, n_clusters=12, per_cluster=500, dim=16)
+    book = jpq.train_pq(X, m=4, nbits=6, iters=4, seed=3)
+    kw = {} if sample == "default" else {"sample": sample}
+    want = jpq.reconstruction_error(book, X, **kw)
+    got = tpq.reconstruction_error(tpq.PQCodebook(book.codebook.copy()), X, **kw, device=CPU)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_build_luts_match_reference(data, ref_graph):
     _, Q = data
     want = np.asarray(jpq.build_luts(ref_graph.pq, Q))

@@ -1,0 +1,113 @@
+"""The port's lifecycle examples held to the reference's.
+
+Each of ``examples/quickstart.py``, ``filtered_search.py`` and
+``fault_tolerance_demo.py`` runs as a subprocess beside its port,
+``examples/torch_<name>.py --device cpu``.  Both must exit 0 and print the
+same lines, with only what a clock or a random id decides masked out (each
+mask says why).  Every other fact is compared as printed: counts, files,
+S3 bytes, recalls, plan ops and ``est_frac``, plan JSON bytes, replay
+identity, inserted / tombstoned / rebuilt, result sets and orphans
+reclaimed.  Floats are compared at their printed precision (recall to 3
+decimals, ``est_frac`` to 2, S3 MB to 2, Puffin MB to 1): equal to half a
+unit of the last printed digit, no looser.  The filtered example's
+``fallbacks`` and ``kernel_dispatches`` depend on the built graph (the
+port's build is held by recall, not bit equality, as ROADMAP's build-parity
+standard says); they are equal today and are held equal.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+MASKED = "<masked>"
+# (pattern, why the value is left unasserted); each must match in both runs
+MASKS = {
+    "quickstart": [
+        (r"snapshot \d+", "a snapshot id is drawn at random"),
+        (r"snap-\d+-[0-9a-f]+\.puffin", "the Puffin path carries the snapshot id and a uuid"),
+        (r"stage0\(sample\+kmeans\)=\S+ stage1\(parallel build\)=\S+ "
+         r"stage2\(assemble\+commit\)=\S+", "build stage seconds are the clock's"),
+        (r"in [0-9.]+s \(metadata-only commit\)", "the refresh's seconds are the clock's"),
+    ],
+    "filtered_search": [],
+    "fault_tolerance_demo": [
+        (r"speculative launches so far: \d+",
+         "how many backups launch while the 3 s straggler sleeps depends on timing"),
+    ],
+}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """All six subprocesses, started at once; (rc, stdout, stderr) by
+    (package, example)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    procs = {}
+    for name in MASKS:
+        cwd = str(tmp_path_factory.mktemp(name))
+        procs["repro", name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py")], env=env, cwd=cwd,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs["repro_torch", name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"), "--device", "cpu"],
+            env=env, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    for key, p in procs.items():
+        stdout, stderr = p.communicate(timeout=900)
+        out[key] = (p.returncode, stdout, stderr)
+    return out
+
+
+def _masked_lines(text, masks):
+    for pattern, _why in masks:
+        text, n = re.subn(pattern, MASKED, text)
+        assert n, f"mask {pattern!r} matched nothing"
+    return text.splitlines()
+
+
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_example_prints_the_reference_facts(runs, name):
+    rc_ref, out_ref, err_ref = runs["repro", name]
+    rc_port, out_port, err_port = runs["repro_torch", name]
+    assert rc_ref == 0, err_ref[-2000:]
+    assert rc_port == 0, err_port[-2000:]
+    assert "terminate called" not in err_port
+    want = _masked_lines(out_ref, MASKS[name])
+    got = _masked_lines(out_port, MASKS[name])
+    assert got == want
+    assert got[-1].endswith("done.")
+
+
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_example_imports_no_jax(name):
+    """Importing a port example loads ``repro_torch`` and neither ``jax`` nor
+    ``repro``."""
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({str(ROOT / 'examples' / f'torch_{name}.py')!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "assert 'repro_torch' in sys.modules and not bad, bad\n"
+    )
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=""))
+    assert p.returncode == 0, p.stderr[-2000:]
+
+
+def test_example_main_needs_a_card_by_default():
+    """``main()`` runs on the card by default and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_filtered_search
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_filtered_search.main()
