@@ -83,6 +83,29 @@ no result line):
    4 shards of 4,000 vectors and 4 result sets with an executor down.
    Then the fault demo once more as a process of its own: exit 0, no
    "terminate called", with its straggler's attempt still asleep.
+11. kNN-LM serving.  (a) qwen2.5-3b at its published widths (36 layers,
+   d 2,048, 16 heads / 2 KV heads of 128, d_ff 11,008, vocabulary 151,936,
+   QKV bias; random bf16 weights from ``--seed``) built on the card; a
+   corpus of 4,000 ``lm_head`` columns of random tokens plus N(0, 0.01^2),
+   their tokens as payload, in a 4-file table, indexed by ``create_index``
+   (the example's R = 16, L = 32, two partitions a shard, one pass), its
+   Puffin shards decoded into a ``DeviceAnnIndex`` probed by
+   ``make_probe_fn(k=8, L=32)``; 8 requests of 16 prompt and 32 greedy
+   tokens served through ``make_serve_fns``, with and without retrieval
+   (lambda 0.3): prefill and decode times beside the decode step's bound
+   (the bf16 weights read once), prefill + decode logits against
+   ``forward`` over the same 48 tokens within 0.06 of the logit scale,
+   the retrieval step's logits finite and apart from lambda 0's, and
+   recall@8 of 100 held-out-token columns (plus the same noise) against
+   brute force: the device probe and ``Coordinator.probe`` each 0.90 at
+   L = 512 (L = 32, the example's, printed beside it, with the decode
+   steps' soft-embedding queries); a PQ twin of the corpus (m = 128) is
+   probed too, so ``gather_rerank`` runs at D = 2,048 as
+   ``kmeans_assign`` and ``rerank_distances`` do.  (b)
+   ``examples/torch_serve_retrieval.py`` in-process: its printed lines and
+   facts.  (c) ``python -m repro_torch.launch.serve --arch chatglm3-6b
+   --retrieval`` as a process: exit 0.  Every kernel call of 11a and 11b
+   is held against its plain version, as in phase 10.
 
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
@@ -116,8 +139,8 @@ every int8, masked ADC and unified call of phases 3-9 too;
 Every phase from 3 on sets the launch counts to 0 before it runs and reads
 them after (``kmeans_assign`` also by (D, K), ``gather_rerank`` by
 (P, k), ``rerank_distances`` by tile, where phases 3-9 must stay on the
-shapes phase 2 checked; phase 3 counts its ground truth; phase 10 holds
-each call against the plain version instead);
+shapes phase 2 checked; phase 3 counts its ground truth; phases 10 and 11
+hold each call against the plain version instead);
 each kernel but ``pq_scan`` must have run on these paths
 (``pq_scan`` has no production caller, in this package or the reference,
 so phase 2 alone holds it).  The line before the last is the ``kernels``
@@ -2651,12 +2674,14 @@ def phase_serving(torch, ctx, seed: int, n_subs: int = SERVE_SUBMISSIONS,
 EXAMPLES = ("quickstart", "filtered_search", "fault_tolerance_demo")
 
 
-def _hold_ops_to_plain(torch):
+def _hold_ops_to_plain(torch, by_dim=None):
     """Phase 10's check that each kernel is right at the shapes the examples
     give it: from here on every ``ops`` call on CUDA tensors also runs its
     plain version on the same inputs (no kernel launch, so nothing is
     counted) and is held to phase 2's tolerance for its kind.  Returns the
-    tally {op: [calls, max abs err]} and a function that restores ``ops``."""
+    tally {op: [calls, max abs err]} and a function that restores ``ops``;
+    with a dict ``by_dim``, also counts the held calls by (op, feature
+    width D of the first argument)."""
     import threading
 
     from repro_torch.kernels import ops
@@ -2714,6 +2739,9 @@ def _hold_ops_to_plain(torch):
                 t = tally.setdefault(what, [0, 0.0])
                 t[0] += 1
                 t[1] = max(t[1], err)
+                if by_dim is not None:
+                    key = (what, int(a[0].shape[-1]))
+                    by_dim[key] = by_dim.get(key, 0) + 1
             return out
         setattr(ops, attr, call)
 
@@ -2792,6 +2820,351 @@ def phase_examples(torch):
                           recall=rec, bands=bands)
 
 
+# -- phase 11 ---------------------------------------------------------------------
+
+LM_ARCH = "qwen2.5-3b"  # its published config, configs/qwen2_5_3b.py (hf:Qwen/Qwen2.5-3B)
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 16, 32  # examples/serve_retrieval.py's requests
+LM_LAMBDA = 0.3
+LM_CORPUS, LM_FILES, LM_QUERIES = 4_000, 4, 100
+LM_ROWS_PER_FILE = LM_CORPUS // LM_FILES  # one row group a file
+LM_K, LM_L = 8, 32  # the example's make_probe_fn(k=8, L=32)
+# the recall gate's beam: on these near-equidistant 2,048-wide columns the
+# example's L = 32 reaches recall@8 of about 0.7 (printed beside the gate)
+LM_RECALL_L = 512
+LM_PQ_M = 128  # the PQ twin's subspaces: d / 16, build_vamana's default
+LM_INDEX = dict(R=16, L=32, partitions_per_shard=2, build_passes=1, build_batch=256)
+
+
+def _lm_graphs(torch, cluster, rep, files, dev):
+    """The snapshot's shard graphs decoded from its Puffin file, and each
+    indexed vector's global row, found through the shard's own file list
+    (the partitioner's order, not the table's)."""
+    from repro_torch.core.blobs import SHARD_BLOB_TYPE, decode_shard_blob
+    from repro_torch.iceberg.puffin import PuffinReader
+
+    store = cluster.store
+    reader = PuffinReader(store.stat(rep.puffin_path).size, store.range_reader(rep.puffin_path))
+    graphs, rows = [], []
+    for bm in reader.blobs_of_type(SHARD_BLOB_TYPE):
+        g, loc = decode_shard_blob(reader.read_blob(bm), device=dev)
+        file_no = np.array([files.index(p) for p in loc.file_paths], np.int64)
+        graphs.append(g)
+        rows.append(LM_ROWS_PER_FILE * file_no[loc.file_idx[: g.n].astype(np.int64)]
+                    + loc.row_offset[: g.n].astype(np.int64))
+    return graphs, rows
+
+
+def _hit_rows(files, report) -> np.ndarray:
+    return np.array([[LM_ROWS_PER_FILE * files.index(h.file_path) + h.row_offset for h in hs]
+                     + [-1] * (LM_K - len(hs)) for hs in report.hits], np.int64)
+
+
+def _serve(torch, model, params, prompts, retrieval=None, index=None, record=None):
+    """Prefill ``prompts`` and decode LM_GEN greedy steps through
+    ``make_serve_fns``; returns (timings, prefill logits, each step's
+    logits, each step's input tokens, a copy of the first step's cache and
+    token)."""
+    from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
+
+    prefill, decode, sample = make_serve_fns(
+        model, cfg=ServeConfig(knn_lambda=LM_LAMBDA if retrieval else 0.0),
+        retrieval=retrieval, device=model.device)
+    cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_p, cache = prefill(params, prompts, cache)
+    tok = sample(logits_p)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = dict(cache={k: v.clone() for k, v in cache.items()}, tok=tok.clone())
+    steps, fed = [], []
+    t0 = time.perf_counter()
+    for t in range(LM_PROMPT, LM_PROMPT + LM_GEN):
+        fed.append(tok)
+        logits, cache = decode(params, tok, cache, t, index)
+        steps.append(logits)
+        tok = sample(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    times = dict(prefill_ms=prefill_s * 1e3, prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_s,
+                 decode_ms_step=decode_s / LM_GEN * 1e3, decode_tok_s=LM_BATCH * LM_GEN / decode_s)
+    return times, logits_p, steps, fed, first
+
+
+def decode_profile(torch, step, n_steps: int = 2):
+    """Kernels and device busy time a decode step, from ``torch.profiler``
+    over ``n_steps`` calls of ``step(i)`` (the device events' own time, the
+    host's dispatch not included; device activity only, so the trace stays
+    small); (None, None) where the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n_steps):
+            step(i)
+        torch.cuda.synchronize()
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        busy_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
+        kernels += e.count
+    if not kernels:
+        return None, None
+    return kernels / n_steps, busy_us / n_steps / 1e3
+
+
+def phase_lm_serving(torch, dev, seed: int, workdir: str):
+    """11a: qwen2.5-3b at its published widths, random bf16 weights from
+    ``seed``, serving 8 requests of 16 prompt and 32 generated tokens over
+    a Puffin-backed kNN-LM index of 4,000 lm_head columns built by
+    ``create_index``, with and without retrieval; decode against forward,
+    retrieval against lambda = 0, the device probe and ``Coordinator.probe``
+    against brute force, every kernel call held against its plain
+    version.  A PQ twin of the corpus (m = 128) runs ``search_pq``, so
+    ``gather_rerank`` runs at D = 2,048 too (the example's index has no PQ).
+    Returns (launches, facts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.vamana import brute_force_topk
+    from repro_torch.kernels import _build
+    from repro_torch.lakehouse.table import LakehouseTable
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import build_model, torch_dtype
+    from repro_torch.runtime.cluster import make_local_cluster
+    from repro_torch.runtime.coordinator import IndexConfig
+    from repro_torch.serving.device_index import DeviceAnnIndex, make_probe_fn
+    from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
+
+    facts: dict = {}
+    by_dim: dict = {}
+    tally, restore = _hold_ops_to_plain(torch, by_dim)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_phase = time.time()
+    try:
+        # -- the model at its published widths -----------------------------
+        t0 = time.time()
+        cfg = get_config(LM_ARCH)
+        model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        params = model.init(dtype=torch_dtype(ServeConfig().param_dtype))
+        torch.cuda.synchronize()
+        n_params = model.param_count(params)
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        bound_ms = param_bytes / PEAK_BYTES * 1e3
+        log(f"phase 11a {LM_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads / "
+            f"{cfg.num_kv_heads} KV of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"theta {cfg.rope_theta:g}, qkv bias {cfg.qkv_bias}; {n_params:,} params (the "
+            f"config's count without norms and biases: {cfg.param_count():,}; "
+            f"{param_bytes / 1e9:.3f} GB bf16) built in {time.time() - t0:.2f} s; decode bound "
+            f"(weights read once a step at {PEAK_BYTES / 1e12:.2f} TB/s) {bound_ms:.3f} ms")
+
+        # -- corpus -> lakehouse -> create_index -> Puffin -> device ---------
+        rng = np.random.default_rng(seed)
+        head = params["lm_head"]  # (d, V) bf16
+        V, d = cfg.vocab_size, cfg.d_model
+        corpus_tokens = rng.integers(0, V, size=LM_CORPUS).astype(np.int64)
+        held = np.setdiff1d(rng.integers(0, V, size=4 * LM_QUERIES), corpus_tokens)
+        q_tokens = rng.permutation(held)[:LM_QUERIES]
+
+        def columns(tokens):
+            cols = head[:, torch.from_numpy(tokens).to(dev)].T.float().cpu().numpy()
+            return (cols + 0.01 * rng.normal(size=cols.shape)).astype(np.float32)
+
+        X, Q = columns(corpus_tokens), columns(q_tokens)
+        cluster = make_local_cluster(str(Path(workdir) / "lm"), num_executors=2, device=dev)
+        reps, tables = {}, {}
+        for name, extra in (("memories", {}), ("memories_pq", dict(pq_m=LM_PQ_M))):
+            t0 = time.time()
+            table = LakehouseTable(cluster.catalog, name)
+            table.create(dim=d)
+            table.append_vectors(X, num_files=LM_FILES)
+            reps[name] = cluster.coordinator.create_index(
+                name, IndexConfig(name=f"{name}_idx", **LM_INDEX, **extra))
+            tables[name] = [f.path for f in table.current_files()]
+            log(f"phase 11a create_index {name} ({extra or 'no PQ'}): {reps[name].num_shards} shards "
+                f"in {time.time() - t0:.2f} s")
+        rep, files = reps["memories"], tables["memories"]
+        graphs, rows = _lm_graphs(torch, cluster, rep, files, dev)
+        index = DeviceAnnIndex.from_graphs(graphs, payloads=[corpus_tokens[r] for r in rows],
+                                           device=dev)
+        by_row = DeviceAnnIndex.from_graphs(graphs, payloads=rows, device=dev)
+        probe = make_probe_fn(k=LM_K, L=LM_L, device=dev)
+        queries = []
+
+        def retrieval(idx, q):
+            queries.append(q.detach().clone())
+            return probe(idx, q)
+
+        # -- serve both ways ---------------------------------------------------
+        prompts = torch.from_numpy(rng.integers(0, V, size=(LM_BATCH, LM_PROMPT))).to(dev)
+        # warm-up, untimed: cuBLAS handles, the allocator, the probe's beam
+        # runners for the decode's query shape (their CUDA graphs)
+        prefill_w, decode_w, sample_w = make_serve_fns(model, device=dev)
+        cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
+        logits, cache = prefill_w(params, prompts, cache)
+        for t in range(LM_PROMPT, LM_PROMPT + 2):
+            logits, cache = decode_w(params, sample_w(logits), cache, t)
+        probe(index, Q[:LM_BATCH])
+        plain, lp, steps, fed, _ = _serve(torch, model, params, prompts)
+        knn, _lp, knn_steps, _fed, first = _serve(torch, model, params, prompts, retrieval, index)
+        for what, tm in (("decode", plain), ("decode + kNN-LM probe", knn)):
+            log(f"phase 11a {what:22s}: prefill {tm['prefill_ms']:.2f} ms "
+                f"({tm['prefill_tok_s']:.1f} tok/s); decode {tm['decode_ms_step']:.3f} ms/step "
+                f"({tm['decode_tok_s']:.1f} tok/s, batch {LM_BATCH}); bound {bound_ms:.3f} ms/step")
+        facts.update(plain=plain, knn=knn, bound_ms=bound_ms, params=n_params, d=d)
+        # where a step's time goes: device events against the host's clock
+        for what, tm, ret in (("decode", plain, None), ("decode + kNN-LM probe", knn, probe)):
+            prefill_p, decode_p, sample_p = make_serve_fns(
+                model, cfg=ServeConfig(knn_lambda=LM_LAMBDA if ret else 0.0), retrieval=ret,
+                device=dev)
+            cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
+            logits, cache = prefill_p(params, prompts, cache)
+            tok = [sample_p(logits)]
+
+            def step(i):
+                out, _ = decode_p(params, tok[0], cache, LM_PROMPT + i, index if ret else None)
+                tok[0] = sample_p(out)
+
+            per_step, busy = decode_profile(torch, step)
+            tm.update(events_step=per_step, busy_ms_step=busy)
+            log(f"phase 11a {what:22s}: profiled, " + (
+                "no device events in the trace: device busy not measured" if busy is None else
+                f"{per_step:.1f} device events a step, device busy {busy:.3f} ms a step = "
+                f"{busy / tm['decode_ms_step']:.3f} of the timed {tm['decode_ms_step']:.3f} ms "
+                f"(idle share {1 - busy / tm['decode_ms_step']:.3f})"))
+
+        # check 1: prefill + decode against forward over the same 48 tokens
+        ids = torch.cat([prompts] + fed, dim=1)
+        full, _ = model.forward(params, ids)
+        scale = max(float(full.abs().max()), 1.0)
+        errs = [float((lp[:, 0].float() - full[:, LM_PROMPT - 1].float()).abs().max())]
+        errs += [float((s[:, 0].float() - full[:, t].float()).abs().max())
+                 for t, s in zip(range(LM_PROMPT, LM_PROMPT + LM_GEN), steps)]
+        log(f"phase 11a decode vs forward over {ids.shape[1]} tokens: max abs err {max(errs):.4f} "
+            f"(prefill {errs[0]:.4f}), logit scale {scale:.3f}, bound 0.06 x scale")
+        if max(errs) >= 0.06 * scale:
+            raise AssertionError(f"decode vs forward: {max(errs)} >= 0.06 x {scale}")
+        del full
+
+        # check 2: retrieval changes the logits (lambda 0.3 against 0 from the
+        # same cache and token)
+        _prefill, decode0, _ = make_serve_fns(model, cfg=ServeConfig(knn_lambda=0.0),
+                                              retrieval=probe, device=dev)
+        l0, _ = decode0(params, first["tok"], first["cache"], LM_PROMPT, index)
+        mixed = knn_steps[0]
+        shift = float((mixed - l0).abs().max())
+        log(f"phase 11a retrieval: first step finite {bool(torch.isfinite(mixed).all())}, "
+            f"max |lambda 0.3 - lambda 0| {shift:.4f}")
+        if not bool(torch.isfinite(mixed).all()) or shift <= 1e-4:
+            raise AssertionError(f"retrieval: finite {bool(torch.isfinite(mixed).all())}, shift {shift}")
+
+        # check 3: the device probe and Coordinator.probe against brute force
+        _, truth = brute_force_topk(X, Q, LM_K, device=dev)
+        recalls = {}
+        for L in (LM_L, LM_RECALL_L):
+            _d, got = make_probe_fn(k=LM_K, L=L, device=dev)(by_row, Q)
+            recalls[f"device L={L}"] = _recall(got.cpu().numpy(), truth)
+            report = cluster.coordinator.probe("memories", Q, LM_K, strategy="diskann", L=L)
+            recalls[f"coordinator L={L}"] = _recall(_hit_rows(files, report), truth)
+        report = cluster.coordinator.probe("memories_pq", Q, LM_K, strategy="diskann", L=LM_L)
+        recalls[f"coordinator PQ m={LM_PQ_M} L={LM_L}"] = _recall(
+            _hit_rows(tables["memories_pq"], report), truth)
+        # check 4 (no gate): the decode steps' soft-embedding queries
+        soft = torch.cat(queries).float().cpu().numpy()
+        _, soft_truth = brute_force_topk(X, soft, LM_K, device=dev)
+        _d, soft_got = make_probe_fn(k=LM_K, L=LM_L, device=dev)(by_row, soft)
+        recalls[f"soft-embedding queries, device L={LM_L}"] = _recall(soft_got.cpu().numpy(),
+                                                                       soft_truth)
+        log(f"phase 11a recall@{LM_K} of {LM_QUERIES} held-out-token queries (and of the "
+            f"{soft.shape[0]} decode queries) against brute force over {LM_CORPUS:,} vectors: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in recalls.items()))
+        facts["recall"] = recalls
+        for who in ("device", "coordinator"):
+            if recalls[f"{who} L={LM_RECALL_L}"] < 0.90:
+                raise AssertionError(f"{who} recall@{LM_K} at L={LM_RECALL_L} < 0.90: {recalls}")
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    log(f"phase 11a: {time.time() - t_phase:.2f} s; launches {launches}; by shape "
+        f"{_build.launch_shapes()}; held calls by (op, D) {by_dim}")
+    log(f"phase 11a held against the plain version: "
+        f"{ {k: f'{n} calls, max abs err {e:.3g}' for k, (n, e) in sorted(tally.items())} }")
+    _need(launches, MAIN_KERNELS, "phase 11a")
+    for op in ("exact_distances", "gather_rerank", "kmeans_assign"):
+        if by_dim.get((op, facts["d"]), 0) == 0:
+            raise AssertionError(f"phase 11a: no {op} call at D = {facts['d']}: {by_dim}")
+    facts["launches"] = launches
+    return launches, facts
+
+
+def phase_lm_example(torch):
+    """11b: ``examples/torch_serve_retrieval.py`` in-process on the card,
+    with the launch counts set to 0 before and read after and every kernel
+    call held against its plain version: its printed lines and its facts."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.kernels import _build
+
+    tally, restore = _hold_ops_to_plain(torch)
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            facts = _example("serve_retrieval").main("cuda")
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = _build.launch_counts()
+    finally:
+        restore()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    log(f"phase 11b serve_retrieval: {secs:.2f} s; launches {launches}; by shape "
+        f"{_build.launch_shapes()}; held against the plain version "
+        f"{ {k: f'{n} calls, max abs err {e:.3g}' for k, (n, e) in sorted(tally.items())} }")
+    want = [r"== corpus -> lakehouse -> CREATE INDEX ==",
+            r"  index built: 2 shards, bound to snapshot \d+",
+            r"== batched serving ==",
+            r"  decode +\d+\.\d tok/s  \(\d+\.\d ms/step, batch 8\)",
+            r"  decode \+ kNN-LM probe +\d+\.\d tok/s  \(\d+\.\d ms/step, batch 8\)",
+            r"done\."]
+    if len(lines) != len(want) or not all(re.fullmatch(w, g) for w, g in zip(want, lines)):
+        raise AssertionError(f"serve_retrieval printed {lines}")
+    tps = [facts[k]["tok_s"] for k in ("decode", "decode + kNN-LM probe")]
+    if facts["shards"] != 2 or not all(np.isfinite(tps)) or min(tps) <= 0 or facts["knn_shift"] <= 1e-4:
+        raise AssertionError(f"serve_retrieval facts {facts}")
+    # the example's index has no PQ and serves through the device probe:
+    # create_index's k-means is its one kernel
+    _need(launches, ("kmeans_assign",), "phase 11b")
+    facts["seconds"] = secs
+    return launches, facts
+
+
+def phase_lm_launcher():
+    """11c: the serving launcher as a process of its own, at its reduced
+    default: ``python -m repro_torch.launch.serve --arch chatglm3-6b
+    --retrieval`` must exit 0."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "chatglm3-6b", "--retrieval"]
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(HERE), env=env)
+    secs = time.time() - t0
+    log(f"phase 11c {' '.join(cmd[1:])}: rc {proc.returncode} in {secs:.2f} s; "
+        f"{proc.stdout.strip().splitlines()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher: rc {proc.returncode}, stderr {proc.stderr[-2000:]}")
+    return dict(seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
@@ -2864,6 +3237,11 @@ def main() -> int:
         per_phase["9"] = got
         got, _stats = timed("10 examples", phase_examples, torch)
         per_phase["10"] = got
+        got, _facts = timed("11a LM serving", phase_lm_serving, torch, dev, args.seed, workdir)
+        per_phase["11a"] = got
+        got, _facts = timed("11b serve_retrieval example", phase_lm_example, torch)
+        per_phase["11b"] = got
+        timed("11c serve launcher", phase_lm_launcher)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}
@@ -2885,7 +3263,7 @@ def main() -> int:
     for name, count in launches.items():
         # pq_scan has no production caller (in either package): phase 2 holds it
         if count == 0 and name not in PHASE2_ONLY:
-            raise AssertionError(f"kernel {name} was not launched on phases 3-10")
+            raise AssertionError(f"kernel {name} was not launched on phases 3-11")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -1,0 +1,23 @@
+"""qwen2.5-3b — GQA kv=2, QKV bias [hf:Qwen/Qwen2.5-0.5B family scaling; hf]."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b",
+    family="dense",
+    num_layers=36,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=2,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=151936,
+    attention="full",
+    rope="full",
+    rope_theta=1_000_000.0,
+    qkv_bias=True,
+    mlp="swiglu",
+    norm="rmsnorm",
+    source="hf:Qwen/Qwen2.5-3B",
+    notes="large vocab (151936) relative to width; vocab-sharded head matters",
+)

@@ -34,6 +34,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def concrete_device(device) -> torch.device:
+    """:func:`resolve_device`, a CUDA device given the current card's index,
+    so it compares equal to the ``.device`` of the tensors made on it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def to_device(array, device, dtype=torch.float32) -> torch.Tensor:
     """A numpy array as a contiguous tensor of ``dtype`` on ``device`` (a
     read-only array, e.g. a view of a decoded blob, is copied first)."""

@@ -2,10 +2,9 @@
 micro-batcher and the device-resident ANN probe.
 
 The micro-batcher imports the coordinator, which imports this package's
-caches, so it (and the device index) load lazily.  Still to come with the
-port of the LLM substrate: ``make_serve_fns`` and ``ServeConfig``
-(prefill/decode with kNN-LM retrieval), and, with ``launch/``,
-``DeviceAnnIndex.abstract`` / ``shardings``.
+caches, so it (and the device index and the LM serving steps,
+``make_serve_fns`` / ``ServeConfig``) load lazily.  Still to come, with
+``launch/``: ``DeviceAnnIndex.abstract`` / ``shardings``.
 """
 
 from repro_torch.serving.admission import (  # noqa: F401
@@ -22,6 +21,8 @@ from repro_torch.serving.metrics import MetricsRegistry  # noqa: F401
 _LAZY = {
     "ProbeMicroBatcher": ("repro_torch.serving.serve_loop", "ProbeMicroBatcher"),
     "MicroBatchStats": ("repro_torch.serving.serve_loop", "MicroBatchStats"),
+    "ServeConfig": ("repro_torch.serving.serve_loop", "ServeConfig"),
+    "make_serve_fns": ("repro_torch.serving.serve_loop", "make_serve_fns"),
     "DeviceAnnIndex": ("repro_torch.serving.device_index", "DeviceAnnIndex"),
     "make_probe_fn": ("repro_torch.serving.device_index", "make_probe_fn"),
 }

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.vamana import _Beam
-from repro_torch.kernels.device_cache import device_lock, resolve_device
+from repro_torch.kernels.device_cache import concrete_device, device_lock, resolve_device
 
 
 @dataclass
@@ -111,9 +111,7 @@ def make_probe_fn(*, k: int, L: int = 32, metric: str = "l2", oversample: int = 
     int(1.3 L) + 8``), its ``min(k * oversample, L)`` best, each mapped to
     its payload (-1 for an empty slot).  Ties keep the lower position, as
     ``lax.top_k`` does."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = concrete_device(device)
     max_iters = int(1.3 * L) + 8
     k_local = min(k * oversample, L)
 

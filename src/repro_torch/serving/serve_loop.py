@@ -6,10 +6,15 @@
 coordinator routing, fragment dispatch, and kernel launches amortize across
 whatever concurrency the serving tier sees.
 
-Port of the batcher half of ``repro/serving/serve_loop.py``.  Its other
-half, ``ServeConfig`` and ``make_serve_fns`` (prefill/decode steps with
-kNN-LM retrieval), needs the model stack and arrives with the port of the
-LLM substrate.
+:func:`make_serve_fns` builds the LM serving steps, ``prefill_step`` and
+``serve_step``.  With ``retrieval=`` an ANN probe
+(:func:`repro_torch.serving.device_index.make_probe_fn`) is fused into the
+decode step: the output distribution's soft embedding queries the
+snapshot-bound index and the retrieved neighbours' tokens interpolate the
+output distribution (kNN-LM), the paper's index as a serving feature.
+
+Port of ``repro/serving/serve_loop.py``: the batcher, ``ServeConfig`` and
+``make_serve_fns``.
 
 One repair against the reference: with a :class:`SemanticResultCache`
 attached, ``submit`` moves the cache's snapshot watermark to the table's
@@ -28,10 +33,13 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.kernels.device_cache import concrete_device
+from repro_torch.models.model import Model, torch_dtype
 from repro_torch.runtime.coordinator import ProbeReport
 from repro_torch.serving.admission import (
     AdmissionController,
@@ -615,3 +623,89 @@ class ProbeMicroBatcher:
 
         self._compact_thread = threading.Thread(target=_run, daemon=True)
         self._compact_thread.start()
+
+
+@dataclass
+class ServeConfig:
+    knn_lambda: float = 0.25  # kNN-LM interpolation weight
+    knn_temperature: float = 1.0
+    greedy: bool = True
+    param_dtype: str = "bfloat16"  # serving params are bf16 (no masters)
+
+
+def make_serve_fns(
+    model: Model,
+    cfg: ServeConfig = ServeConfig(),
+    retrieval: Optional[Callable] = None,  # probe fn from make_probe_fn
+    device="cuda",
+):
+    """The serving steps of ``model`` on ``device`` (CUDA by default; raises
+    without a card): ``(prefill_step, serve_step, sample)``.
+
+    - ``prefill_step(params, ids, cache)`` → (last-token logits, cache);
+    - ``serve_step(params, ids, cache, pos, index=None)`` → (logits, cache):
+      one decode step at position ``pos`` (the cache is updated in place),
+      kNN-LM-mixed against ``index`` when ``retrieval`` is set and an index
+      is given;
+    - ``sample(logits, generator=None)`` → tokens: the argmax with
+      ``cfg.greedy``, else a categorical draw from ``generator``.
+
+    ``params`` must be stored in ``cfg.param_dtype`` on ``device`` (the
+    steps raise otherwise: serving keeps no f32 masters).  The reference's
+    mesh, ``rules``, ``index_template`` and the returned ``Shardings``
+    arrive with the port of ``models/sharding.py`` and ``launch/``; on one
+    card the steps run eagerly."""
+    dev = concrete_device(device)
+    if model.device != dev:
+        raise ValueError(f"the model lives on {model.device}, the serving steps on {dev}")
+    want = torch_dtype(cfg.param_dtype)
+
+    def check_params(params, path=""):
+        for key, leaf in params.items():
+            if isinstance(leaf, dict):
+                check_params(leaf, f"{path}{key}/")
+            elif leaf.dtype != want or leaf.device != dev:
+                raise ValueError(f"param {path}{key} is {leaf.dtype} on {leaf.device}; "
+                                 f"serving takes {want} on {dev}")
+
+    def prefill_step(params, ids, cache):
+        check_params(params)
+        return model.prefill(params, torch.as_tensor(ids, device=dev), cache)
+
+    def serve_step(params, ids, cache, pos, index=None):
+        """One decode step: logits for the new token (+ cache update),
+        optionally kNN-LM-interpolated against the ANN index."""
+        check_params(params)
+        logits, cache = model.decode(params, torch.as_tensor(ids, device=dev), cache, pos)
+        if retrieval is None or index is None:
+            return logits, cache
+        # Query vector: the probability-weighted lm_head embedding of the
+        # output distribution ("soft embedding", dim = d_model).  The corpus
+        # index is built in the same space, so query and keys are
+        # commensurate regardless of architecture family.
+        head = params["lm_head"]
+        probs = torch.softmax(logits.float(), dim=-1)
+        if model.cfg.num_codebooks:
+            q = torch.einsum("bscv,cdv->bsd", probs.to(head.dtype), head)[:, 0]
+        else:
+            q = torch.einsum("bsv,dv->bsd", probs.to(head.dtype), head)[:, 0]
+        dists, neigh_tokens = retrieval(index, q)  # (B, k), (B, k)
+        # scatter neighbour tokens into a vocab distribution
+        w = torch.softmax(-dists / cfg.knn_temperature, dim=-1)  # (B, k)
+        V = logits.shape[-1]
+        knn_probs = torch.zeros((q.shape[0], V), dtype=torch.float32, device=dev)
+        knn_probs.scatter_add_(1, neigh_tokens.clamp(0, V - 1), w * (neigh_tokens >= 0))
+        base = probs[:, 0]
+        if model.cfg.num_codebooks:
+            knn_probs = knn_probs[:, None, :]
+        mixed = (1 - cfg.knn_lambda) * base + cfg.knn_lambda * knn_probs
+        return torch.log(torch.clamp(mixed, min=1e-20))[:, None], cache
+
+    def sample(logits, generator: Optional[torch.Generator] = None):
+        if cfg.greedy:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float(), dim=-1)
+        flat = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator)
+        return flat.reshape(probs.shape[:-1])
+
+    return prefill_step, serve_step, sample

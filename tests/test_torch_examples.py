@@ -13,8 +13,18 @@ unit of the last printed digit, no looser.  The filtered example's
 ``fallbacks`` and ``kernel_dispatches`` depend on the built graph (the
 port's build is held by recall, not bit equality, as ROADMAP's build-parity
 standard says); they are equal today and are held equal.
+
+``examples/torch_serve_retrieval.py`` has no reference run to compare
+with: the reference's ``serve_retrieval.py`` stops at a
+``ShardingTypeError`` in its jitted decode on this tree.  Its port runs
+in-process on the CPU and its facts are asserted directly: the printed
+lines, two shards, both throughput lines, retrieval moving the logits, and
+every indexed vector's payload its own corpus token.
 """
 
+import contextlib
+import importlib.util
+import io
 import os
 import re
 import subprocess
@@ -85,7 +95,7 @@ def test_example_prints_the_reference_facts(runs, name):
     assert got[-1].endswith("done.")
 
 
-@pytest.mark.parametrize("name", sorted(MASKS))
+@pytest.mark.parametrize("name", sorted(MASKS) + ["serve_retrieval"])
 def test_example_imports_no_jax(name):
     """Importing a port example loads ``repro_torch`` and neither ``jax`` nor
     ``repro``."""
@@ -111,3 +121,81 @@ def test_example_main_needs_a_card_by_default():
         sys.path.remove(str(ROOT / "examples"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_filtered_search.main()
+
+
+@pytest.fixture(scope="module")
+def serve_retrieval():
+    """``examples/torch_serve_retrieval.py``'s ``main("cpu")``: (printed
+    lines, returned facts)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_retrieval", ROOT / "examples" / "torch_serve_retrieval.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        facts = mod.main("cpu")
+    return buf.getvalue().splitlines(), facts
+
+
+def test_serve_retrieval_prints_the_reference_lines(serve_retrieval):
+    """The reference example's lines, in its format (its clock's values
+    and the snapshot id free)."""
+    lines, _facts = serve_retrieval
+    want = [r"== corpus -> lakehouse -> CREATE INDEX ==",
+            r"  index built: 2 shards, bound to snapshot \d+",
+            r"== batched serving ==",
+            r"  decode {16} +\d+\.\d tok/s  \(\d+\.\d ms/step, batch 8\)",
+            r"  decode \+ kNN-LM probe +\d+\.\d tok/s  \(\d+\.\d ms/step, batch 8\)",
+            r"done\."]
+    assert len(lines) == len(want), lines
+    for pattern, line in zip(want, lines):
+        assert re.fullmatch(pattern, line), (pattern, line)
+
+
+def test_serve_retrieval_facts(serve_retrieval):
+    _lines, facts = serve_retrieval
+    assert facts["shards"] == 2
+    for label in ("decode", "decode + kNN-LM probe"):
+        assert facts[label]["tok_s"] > 0 and facts[label]["ms_step"] > 0
+        assert abs(facts[label]["tok_s"] * facts[label]["ms_step"] - 8 * 1e3) < 1e-6 * 8e3
+    # lambda 0.3: the retrieved neighbours move the first step's log-probs
+    assert facts["knn_shift"] > 1e-4
+
+
+def test_serve_retrieval_payload_rows():
+    """The example finds each indexed vector's corpus row through its
+    shard's own file list: on a 4-file table, every decoded vector equals
+    the table's row its payload names (the reference's formula, which
+    takes the shard-local file number for the table's, names another row
+    for the vectors of two of the four files)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.blobs import SHARD_BLOB_TYPE, decode_shard_blob
+    from repro_torch.iceberg.puffin import PuffinReader
+    from repro_torch.lakehouse.table import LakehouseTable
+    from repro_torch.runtime.cluster import make_local_cluster
+    from repro_torch.runtime.coordinator import IndexConfig
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(4000, 16)).astype(np.float32)
+    with tempfile.TemporaryDirectory(ignore_cleanup_errors=True) as root:
+        c = make_local_cluster(root, num_executors=2, device="cpu")
+        t = LakehouseTable(c.catalog, "m")
+        t.create(dim=16)
+        t.append_vectors(X, num_files=4)
+        files = [f.path for f in t.current_files()]
+        rep = c.coordinator.create_index("m", IndexConfig(
+            name="i", R=16, L=32, partitions_per_shard=2, build_passes=1, build_batch=256))
+        reader = PuffinReader(c.store.stat(rep.puffin_path).size,
+                              c.store.range_reader(rep.puffin_path))
+        moved = 0
+        for bm in reader.blobs_of_type(SHARD_BLOB_TYPE):
+            g, loc = decode_shard_blob(reader.read_blob(bm), device="cpu")
+            file_no = np.array([files.index(p) for p in loc.file_paths], np.int64)
+            rows = 1000 * file_no[loc.file_idx[: g.n]] + loc.row_offset[: g.n].astype(np.int64)
+            np.testing.assert_array_equal(g.vectors[: g.n], X[rows])
+            ref_rows = loc.row_offset[: g.n].astype(np.int64) + 1000 * loc.file_idx[: g.n]
+            moved += int((ref_rows != rows).sum())
+    assert moved > 0  # the partitioner's file order is not the table's here

@@ -155,6 +155,13 @@ rr = c.coordinator.refresh_index("emb", "i")
 assert rr.inserted == 90 and rr.tombstoned > 0, rr
 r = c.coordinator.probe("emb", X[:3], 4, strategy="diskann")
 assert [len(h) for h in r.hits] == [4, 4, 4]
+# the LLM substrate: configs, models, the serving steps, the launcher and
+# the kNN-LM example
+import runpy
+import repro_torch.configs, repro_torch.models.model, repro_torch.serving.serve_loop
+import repro_torch.launch.serve
+runpy.run_path({str(Path(SRC).parent / "examples" / "torch_serve_retrieval.py")!r})
+from repro_torch.serving import make_serve_fns, ServeConfig
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 """
