@@ -32,10 +32,13 @@ from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
 FULL_PARAM_SHARE = 0.85
 
 
-def _check_fits(cfg, dev: torch.device, param_dtype: torch.dtype) -> None:
+def _check_fits(model, dev: torch.device, param_dtype: torch.dtype) -> None:
+    """Refuses a model whose parameters (every tensor of its tree, a MoE's
+    experts included), stored in ``param_dtype``, exceed the card's share."""
+    cfg = model.cfg
     if dev.type != "cuda":
         raise ValueError("--full serves the published widths on the card; pass --device cuda")
-    need = cfg.param_count() * torch.empty((), dtype=param_dtype).element_size()
+    need = model.param_count() * torch.empty((), dtype=param_dtype).element_size()
     have = torch.cuda.get_device_properties(dev).total_memory
     if need > FULL_PARAM_SHARE * have:
         raise ValueError(f"{cfg.name}: {need / 1e9:.1f} GB of parameters do not fit "
@@ -66,10 +69,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
-    else:
-        _check_fits(cfg, dev, param_dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = build_model(cfg, device=dev, generator=gen)
+    if not args.reduced:
+        _check_fits(model, dev, param_dtype)
     params = model.init(dtype=param_dtype)
     max_len = args.prompt + args.gen
     rng = np.random.default_rng(0)

@@ -361,6 +361,34 @@ def decode_attention(
 
 
 # ---------------------------------------------------------------------------
+# activations, step by step as the reference's compile to
+# ---------------------------------------------------------------------------
+#
+# XLA expands ``jax.nn.sigmoid`` and the tanh ``jax.nn.gelu`` into their
+# elementary operations and rounds each one to the input's dtype; torch's
+# fused activations round once.  At bf16 the two differ in about a third of
+# the elements, so the port writes them out as the reference computes them.
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)), each step in x's dtype."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x · sigmoid(x), each step in x's dtype."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``, each step in x's dtype, its
+    constants rounded to that dtype first."""
+    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
+    a = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -382,12 +410,12 @@ def mlp_block(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
         g = x @ p["wi_gate"].to(x.dtype)
         u = x @ p["wi_up"].to(x.dtype)
-        h = F.silu(g) * u
+        h = silu(g) * u
     elif kind == "squared_relu":
         h = torch.square(F.relu(x @ p["wi"].to(x.dtype)))
     elif kind == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["wi"].to(x.dtype), approximate="tanh")
+        h = gelu_tanh(x @ p["wi"].to(x.dtype))
     else:
         raise ValueError(kind)
     return h @ p["wo"].to(x.dtype)

@@ -1,4 +1,4 @@
-"""Model assembly: the dense decoder family.
+"""Model assembly: one decoder skeleton, four families.
 
 Port of ``repro/models/model.py``.  ``build_model(cfg, tp=..., device=...)``
 returns a :class:`Model` whose methods keep the reference's signatures:
@@ -11,21 +11,33 @@ returns a :class:`Model` whose methods keep the reference's signatures:
 - ``decode(params, ids_1, cache, pos)`` → (logits, cache)
 
 The params keep the reference's layout: every per-layer tensor is stacked
-under ``layers/...`` with a leading layer dimension, and the cache is
-``k``, ``v`` of shape (layers, B, W, KV, hd) with ``positions`` (W,) int32,
-so a reference tree or cache converts one to one (:func:`params_from_numpy`).
+under ``layers/...`` with a leading layer dimension (zamba2's shared block
+under ``shared/...``, unstacked), and so does each family's cache, so a
+reference tree or cache converts one to one (:func:`params_from_numpy`).
 Where the reference scans over the layer dimension, the port loops over it.
-``decode`` writes the new token's keys and values into ``cache`` in place
-(the reference donates the cache to the same effect).
+``prefill`` starts from the states of the cache it is given and returns a
+new cache; ``decode`` writes every cache entry in place (the reference
+donates the cache to the same effect).
+
+The families:
+
+- dense / MoE transformer (full or sliding-window attention, RoPE full or
+  partial, QKV bias, qk-norm, SwiGLU / squared-ReLU / GELU MLPs, the
+  codebook heads of musicgen; the MoE block's GShard dispatch in
+  ``forward`` / ``prefill`` and its dense dispatch in ``decode``, as the
+  reference splits them): cache ``k``, ``v`` (layers, B, W, KV, hd) and
+  ``positions`` (W,) int32;
+- ``rwkv6``: cache ``x_att``, ``x_ffn`` (layers, B, D), the token-shift
+  carries of the time- and channel-mix, and ``wkv`` (layers, B, H, N, N)
+  f32;
+- ``mamba2`` (+ zamba2's shared attention + MLP block after every full
+  group of ``shared_attn_every`` layers): cache ``conv_x``, ``conv_B``,
+  ``conv_C`` (layers, B, 3, ·) in the compute dtype, ``ssm`` (layers, B,
+  H, N, P) f32, and, with a shared block, ``shared_k`` / ``shared_v``
+  (n_shared, B, max_len, KV, hd) and ``positions``.
 
 KV heads are padded up to the tensor-parallel degree by the reference's rule
 (``build_model``), so parameter shapes match the reference's for any ``tp``.
-
-Ported: the dense transformer (full or sliding-window attention, RoPE full
-or partial, QKV bias, qk-norm, SwiGLU / squared-ReLU / GELU MLPs, the
-codebook heads of musicgen).  Not yet: the MoE block, ``rwkv6`` and
-``mamba2`` (ROADMAP Queue 1, item 5): ``build_model`` raises
-``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -35,10 +47,14 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.device_cache import concrete_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import ParamBuilder
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -55,7 +71,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# parameter init (dense family)
+# parameter init (all families)
 # ---------------------------------------------------------------------------
 
 
@@ -76,10 +92,34 @@ def _init_params(cfg: ModelConfig, kv_eff: int, generator, *, dtype=torch.float3
         b.add("lm_head", (d, V), ("embed", "vocab"), scale=0.02)
     # per-layer stacks: leading "layers" dim on every per-layer param
     layer_axes = (nl,)
-    L.add_norm_params(b, "layers/ln_att", d, cfg.norm, layer_axes)
-    L.add_attention_params(b, "layers/attn", cfg_kv, layer_axes, kv_heads=kv_eff)
-    L.add_norm_params(b, "layers/ln_mlp", d, cfg.norm, layer_axes)
-    L.add_mlp_params(b, "layers/mlp", cfg, layer_axes)
+    if cfg.ssm == "rwkv6":
+        L.add_norm_params(b, "layers/ln_att", d, cfg.norm, layer_axes)
+        R6.add_rwkv6_params(b, "layers/tmix", cfg, layer_axes)
+        L.add_norm_params(b, "layers/ln_ffn", d, cfg.norm, layer_axes)
+        # channel-mix (token-shifted relu^2 FFN with receptance gate)
+        la = (None,)
+        b.add("layers/cmix/wk", layer_axes + (d, cfg.d_ff), la + ("embed", "mlp"), scale=1.0 / np.sqrt(d))
+        b.add("layers/cmix/wv", layer_axes + (cfg.d_ff, d), la + ("mlp", "embed"), scale=1.0 / np.sqrt(cfg.d_ff))
+        b.add("layers/cmix/wr", layer_axes + (d, d), la + ("embed", None), scale=1.0 / np.sqrt(d))
+        b.add("layers/cmix/mu_k", layer_axes + (d,), la + ("embed",), init="zeros")
+        b.add("layers/cmix/mu_r", layer_axes + (d,), la + ("embed",), init="zeros")
+    elif cfg.ssm == "mamba2":
+        L.add_norm_params(b, "layers/ln", d, cfg.norm, layer_axes)
+        M2.add_mamba2_params(b, "layers/mixer", cfg, layer_axes)
+        if cfg.shared_attn_every:
+            # zamba2 shared attention + mlp block (params NOT stacked)
+            L.add_norm_params(b, "shared/ln_att", d, cfg.norm)
+            L.add_attention_params(b, "shared/attn", cfg_kv, (), kv_heads=kv_eff)
+            L.add_norm_params(b, "shared/ln_mlp", d, cfg.norm)
+            L.add_mlp_params(b, "shared/mlp", cfg)
+    else:
+        L.add_norm_params(b, "layers/ln_att", d, cfg.norm, layer_axes)
+        L.add_attention_params(b, "layers/attn", cfg_kv, layer_axes, kv_heads=kv_eff)
+        L.add_norm_params(b, "layers/ln_mlp", d, cfg.norm, layer_axes)
+        if cfg.num_experts:
+            MOE.add_moe_params(b, "layers/moe", cfg, layer_axes)
+        else:
+            L.add_mlp_params(b, "layers/mlp", cfg, layer_axes)
     L.add_norm_params(b, "final_norm", d, cfg.norm)
     return b.params, b.axes
 
@@ -164,13 +204,14 @@ def _attn_decode(p, cfg: ModelConfig, x, k_cache, v_cache, cache_positions, pos:
 
 
 # ---------------------------------------------------------------------------
-# family: dense transformer
+# the model: what every family shares
 # ---------------------------------------------------------------------------
 
 
 class Model:
-    """The dense decoder on one device; the methods mirror the reference's
-    ``Model`` fields."""
+    """A decoder on one device; the methods mirror the reference's ``Model``
+    fields, each family (a subclass) giving ``forward``, ``init_cache``,
+    ``cache_axes``, ``prefill`` and ``decode``."""
 
     def __init__(self, cfg: ModelConfig, kv_eff: int, device: torch.device,
                  generator: Optional[torch.Generator] = None):
@@ -181,8 +222,6 @@ class Model:
         self.dtype = _compute_dtype(cfg)
         self._cfg_kv = dataclasses.replace(cfg, num_kv_heads=kv_eff)
         self.axes = _init_params(cfg, kv_eff, None, abstract=True)[1]
-
-    # -- params -------------------------------------------------------------
 
     def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32):
         """Fresh params on the model's device, drawn from ``generator`` (the
@@ -196,7 +235,35 @@ class Model:
     def param_count(self, params=None) -> int:
         return L.param_count(params if params is not None else param_shapes(self))
 
-    # -- full sequence --------------------------------------------------------
+    def _zeros(self, shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+
+    def _finish(self, params, x, last: bool):
+        """Final norm and head, of the last position only with ``last``."""
+        x = L.apply_norm(self.cfg.norm, params["final_norm"], x)
+        return _head(params, self.cfg, x[:, -1:, :] if last else x)
+
+
+# ---------------------------------------------------------------------------
+# family: dense / moe transformer
+# ---------------------------------------------------------------------------
+
+
+class Transformer(Model):
+
+    def _ffn(self, lp, h, dense_moe: bool = False):
+        """The block's MLP, or its MoE: GShard dispatch (with capacity
+        drops) unless ``dense_moe``; returns (out, aux)."""
+        cfg = self.cfg
+        if not cfg.num_experts:
+            return L.mlp_block(lp["mlp"], h, cfg.mlp), 0.0
+        if dense_moe:
+            # decode is weight-read-bound: dense dispatch is exact (no
+            # capacity drops) and its extra FLOPs are negligible at S=1.
+            return MOE.moe_block_dense_ref(lp["moe"], h, num_experts=cfg.num_experts,
+                                           top_k=cfg.top_k), 0.0
+        return MOE.moe_block(lp["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
 
     def _block(self, lp, x, q_offset: int = 0):
         cfg = self.cfg
@@ -204,17 +271,17 @@ class Model:
         att, kv = _attn_full(lp["attn"], self._cfg_kv, h, q_offset)
         x = x + att
         h = L.apply_norm(cfg.norm, lp["ln_mlp"], x)
-        return x + L.mlp_block(lp["mlp"], h, cfg.mlp), kv
+        out, aux = self._ffn(lp, h)
+        return x + out, kv, aux
 
     def forward(self, params, ids):
         cfg = self.cfg
         x = _embed(params, cfg, ids, self.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
-            x, _ = self._block(_layer(params["layers"], i), x)
-        x = L.apply_norm(cfg.norm, params["final_norm"], x)
-        return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
-
-    # -- serving --------------------------------------------------------------
+            x, _, a = self._block(_layer(params["layers"], i), x)
+            aux = aux + a
+        return self._finish(params, x, last=False), aux / cfg.num_layers
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -222,8 +289,8 @@ class Model:
         shape = (cfg.num_layers, batch, W, self.kv_eff, cfg.head_dim)
         cache_dt = getattr(torch, cfg.cache_dtype) if cfg.cache_dtype else self.dtype
         return {
-            "k": torch.zeros(shape, dtype=cache_dt, device=self.device),
-            "v": torch.zeros(shape, dtype=cache_dt, device=self.device),
+            "k": self._zeros(shape, cache_dt),
+            "v": self._zeros(shape, cache_dt),
             "positions": torch.full((W,), -1, dtype=torch.int32, device=self.device),
         }
 
@@ -240,12 +307,11 @@ class Model:
         W = cache["k"].shape[2]
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            x, (k, v) = self._block(_layer(params["layers"], i), x)
+            x, (k, v), _ = self._block(_layer(params["layers"], i), x)
             # keep the last W positions of k/v for the cache
             ks.append(k[:, -W:].to(self.dtype))
             vs.append(v[:, -W:].to(self.dtype))
-        x = L.apply_norm(cfg.norm, params["final_norm"], x)
-        logits = _head(params, cfg, x[:, -1:, :])
+        logits = self._finish(params, x, last=True)
         ks, vs = torch.stack(ks), torch.stack(vs)  # (layers, B, min(S, W), KV, hd)
         kept = torch.arange(W, device=x.device)
         if S >= W:
@@ -275,9 +341,217 @@ class Model:
             x = x + _attn_decode(lp["attn"], self._cfg_kv, h, cache["k"][i], cache["v"][i],
                                  positions, pos)
             h = L.apply_norm(cfg.norm, lp["ln_mlp"], x)
-            x = x + L.mlp_block(lp["mlp"], h, cfg.mlp)
-        x = L.apply_norm(cfg.norm, params["final_norm"], x)
-        return _head(params, cfg, x), cache
+            x = x + self._ffn(lp, h, dense_moe=True)[0]
+        return self._finish(params, x, last=False), cache
+
+
+# ---------------------------------------------------------------------------
+# family: rwkv6
+# ---------------------------------------------------------------------------
+
+
+class Rwkv(Model):
+
+    def _cmix(self, lp, x, x_prev):
+        xs = R6._token_shift(x, x_prev)
+        xk = R6._mix(x, xs, lp["mu_k"])
+        xr = R6._mix(x, xs, lp["mu_r"])
+        k = torch.square(F.relu(xk @ lp["wk"].to(x.dtype)))
+        r = L.sigmoid(xr @ lp["wr"].to(x.dtype))
+        return r * (k @ lp["wv"].to(x.dtype)), x[:, -1, :]
+
+    def _block(self, lp, x, x_att, x_ffn, wkv, chunked: bool):
+        """One layer from its carries; returns (x, (x_att, x_ffn, wkv))."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg.norm, lp["ln_att"], x)
+        mix = R6.rwkv6_chunked if chunked else R6.rwkv6_decode
+        att, x_att, wkv = mix(lp["tmix"], h, x_att, wkv)
+        x = x + att
+        h = L.apply_norm(cfg.norm, lp["ln_ffn"], x)
+        ff, x_ffn = self._cmix(lp["cmix"], h, x_ffn)
+        return x + ff, (x_att, x_ffn, wkv)
+
+    def init_cache(self, batch: int, max_len: int):
+        cfg = self.cfg
+        H, N = cfg.ssm_heads_eff, cfg.head_dim
+        return {
+            "x_att": self._zeros((cfg.num_layers, batch, cfg.d_model)),
+            "x_ffn": self._zeros((cfg.num_layers, batch, cfg.d_model)),
+            "wkv": self._zeros((cfg.num_layers, batch, H, N, N), torch.float32),
+        }
+
+    def cache_axes(self, batch: int, max_len: int):
+        return {
+            "x_att": ("layers", "cache_batch", "embed"),
+            "x_ffn": ("layers", "cache_batch", "embed"),
+            "wkv": ("layers", "cache_batch", "ssm_heads", None, None),
+        }
+
+    def _run(self, params, x, cache, chunked: bool):
+        """Every layer from the cache's carries; returns (x, the new
+        carries stacked by layer)."""
+        outs = []
+        for i in range(self.cfg.num_layers):
+            x, carry = self._block(_layer(params["layers"], i), x, cache["x_att"][i],
+                                   cache["x_ffn"][i], cache["wkv"][i], chunked)
+            outs.append(carry)
+        return x, [torch.stack(c) for c in zip(*outs)]
+
+    def forward(self, params, ids):
+        x = _embed(params, self.cfg, ids, self.dtype)
+        x, _ = self._run(params, x, self.init_cache(ids.shape[0], 0), chunked=True)
+        return self._finish(params, x, last=False), torch.zeros((), dtype=torch.float32,
+                                                                 device=x.device)
+
+    def prefill(self, params, ids, cache):
+        x = _embed(params, self.cfg, ids, self.dtype)
+        x, (ca, cf, st) = self._run(params, x, cache, chunked=True)
+        return self._finish(params, x, last=True), {"x_att": ca, "x_ffn": cf, "wkv": st}
+
+    def decode(self, params, ids, cache, pos):
+        """One token; updates ``cache`` in place and returns (logits,
+        cache)."""
+        x = _embed_decode(params, self.cfg, ids, int(pos), self.dtype)
+        x, new = self._run(params, x, cache, chunked=False)
+        for name, t in zip(("x_att", "x_ffn", "wkv"), new):
+            cache[name].copy_(t)
+        return self._finish(params, x, last=False), cache
+
+
+# ---------------------------------------------------------------------------
+# family: mamba2 (+ zamba2 hybrid shared attention)
+# ---------------------------------------------------------------------------
+
+
+class Mamba(Model):
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        cfg = self.cfg
+        every = self.every = cfg.shared_attn_every
+        self.n_shared = (cfg.num_layers // every) if every else 0
+        # the shared attention block runs after every full group of
+        # ``every`` mamba layers: {last layer of the group: its KV slot}
+        self.shared_after = {(g + 1) * every - 1: g for g in range(self.n_shared)}
+
+    def _shared(self, params, x, attend):
+        """The shared attention + MLP block; ``attend(p, h)`` gives the
+        attention output."""
+        cfg = self.cfg
+        sp = params["shared"]
+        h = L.apply_norm(cfg.norm, sp["ln_att"], x)
+        x = x + attend(sp["attn"], h)
+        h = L.apply_norm(cfg.norm, sp["ln_mlp"], x)
+        return x + L.mlp_block(sp["mlp"], h, cfg.mlp)
+
+    def init_cache(self, batch: int, max_len: int):
+        cfg = self.cfg
+        inner = cfg.ssm_expand * cfg.d_model
+        H, N, K = cfg.ssm_heads_eff, cfg.ssm_state, M2.CONV_K
+        nl = cfg.num_layers
+        cache = {
+            "conv_x": self._zeros((nl, batch, K - 1, inner)),
+            "conv_B": self._zeros((nl, batch, K - 1, N)),
+            "conv_C": self._zeros((nl, batch, K - 1, N)),
+            "ssm": self._zeros((nl, batch, H, N, inner // H), torch.float32),
+        }
+        if self.every:
+            cache["shared_k"] = self._zeros((self.n_shared, batch, max_len, self.kv_eff, cfg.head_dim))
+            cache["shared_v"] = torch.zeros_like(cache["shared_k"])
+            cache["positions"] = torch.full((max_len,), -1, dtype=torch.int32, device=self.device)
+        return cache
+
+    def cache_axes(self, batch: int, max_len: int):
+        ax = {
+            "conv_x": ("layers", "cache_batch", "conv", "mlp"),
+            "conv_B": ("layers", "cache_batch", "conv", "ssm_state"),
+            "conv_C": ("layers", "cache_batch", "conv", "ssm_state"),
+            "ssm": ("layers", "cache_batch", "ssm_heads", "ssm_state", None),
+        }
+        if self.every:
+            ax["shared_k"] = (None, "cache_batch", "cache_seq", "cache_heads", "head_dim")
+            ax["shared_v"] = (None, "cache_batch", "cache_seq", "cache_heads", "head_dim")
+            ax["positions"] = ("cache_seq",)
+        return ax
+
+    def _run(self, params, x, cache, chunked: bool, shared):
+        """Every mamba layer from the cache's states, ``shared(x, slot)``
+        after each full group; returns (x, the new states stacked by
+        layer)."""
+        cfg = self.cfg
+        mix = M2.mamba2_chunked if chunked else M2.mamba2_decode
+        outs = []
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            h = L.apply_norm(cfg.norm, lp["ln"], x)
+            conv = (cache["conv_x"][i], cache["conv_B"][i], cache["conv_C"][i])
+            out, conv, st = mix(lp["mixer"], h, conv, cache["ssm"][i])
+            x = x + out
+            outs.append(conv + (st,))
+            if i in self.shared_after:
+                x = shared(x, self.shared_after[i])
+        return x, [torch.stack(c) for c in zip(*outs)]
+
+    def forward(self, params, ids):
+        x = _embed(params, self.cfg, ids, self.dtype)
+
+        def shared(x, _slot):
+            return self._shared(params, x, lambda p, h: _attn_full(p, self._cfg_kv, h, 0)[0])
+
+        x, _ = self._run(params, x, self.init_cache(ids.shape[0], 0), True, shared)
+        return self._finish(params, x, last=False), torch.zeros((), dtype=torch.float32,
+                                                                 device=x.device)
+
+    def prefill(self, params, ids, cache):
+        """The prompt from the cache's states.  Each shared invocation keeps
+        the last ``max_len`` positions' keys and values at slots 0.. of its
+        own KV slot, and ``positions`` marks the first ``min(S, max_len)``
+        slots as positions 0.. (the reference's layout, also when S >
+        max_len)."""
+        x = _embed(params, self.cfg, ids, self.dtype)
+        new = {}
+        if self.every:
+            sk, sv = cache["shared_k"].clone(), cache["shared_v"].clone()
+            W = sk.shape[2]
+
+            def shared(x, slot):
+                def attend(p, h):
+                    att, (k, v) = _attn_full(p, self._cfg_kv, h, 0)
+                    kept = k[:, -W:].shape[1]
+                    sk[slot] = 0
+                    sv[slot] = 0
+                    sk[slot, :, :kept] = k[:, -W:].to(sk.dtype)
+                    sv[slot, :, :kept] = v[:, -W:].to(sv.dtype)
+                    return att
+                return self._shared(params, x, attend)
+
+            slots = torch.arange(W, device=x.device)
+            new = {"shared_k": sk, "shared_v": sv,
+                   "positions": torch.where(slots < min(ids.shape[1], W), slots, -1).to(torch.int32)}
+        else:
+            shared = None
+        x, (cx, cb, cc, st) = self._run(params, x, cache, True, shared)
+        return (self._finish(params, x, last=True),
+                {"conv_x": cx, "conv_B": cb, "conv_C": cc, "ssm": st, **new})
+
+    def decode(self, params, ids, cache, pos):
+        """One token at ``pos``; updates ``cache`` in place (the shared
+        block's keys and values at slot ``pos % max_len`` of each
+        invocation's KV slot) and returns (logits, cache)."""
+        pos = int(pos)
+        x = _embed_decode(params, self.cfg, ids, pos, self.dtype)
+        if self.every:
+            positions = cache["positions"]
+            positions[pos % cache["shared_k"].shape[2]] = pos
+
+        def shared(x, slot):
+            return self._shared(params, x, lambda p, h: _attn_decode(
+                p, self._cfg_kv, h, cache["shared_k"][slot], cache["shared_v"][slot], positions, pos))
+
+        x, new = self._run(params, x, cache, False, shared)
+        for name, t in zip(("conv_x", "conv_B", "conv_C", "ssm"), new):
+            cache[name].copy_(t)
+        return self._finish(params, x, last=False), cache
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +563,6 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, device="cuda",
                 generator: Optional[torch.Generator] = None) -> Model:
     """The model of ``cfg`` on ``device`` (CUDA by default; raises without a
     card).  ``generator`` is ``init``'s default source of draws."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE block is not ported yet (ROADMAP Queue 1, item 5)")
-    if cfg.ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.ssm} family is not ported yet (ROADMAP Queue 1, item 5)")
     # Pad KV heads up to the TP degree so GQA caches shard cleanly — only
     # when the padding keeps a valid grouping (KV | H) and is a true
     # replication (kv | tp); otherwise keep the native kv heads.
@@ -307,7 +575,8 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, device="cuda",
         and tp % cfg.num_kv_heads == 0
     ):
         kv_eff = tp
-    return Model(cfg, kv_eff, concrete_device(device), generator)
+    family = {"rwkv6": Rwkv, "mamba2": Mamba}.get(cfg.ssm, Transformer)
+    return family(cfg, kv_eff, concrete_device(device), generator)
 
 
 def param_shapes(model: Model):

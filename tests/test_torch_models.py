@@ -1,6 +1,8 @@
-"""The port's dense decoder family held to the reference's.
+"""The port's decoders, all four families, held to the reference's.
 
-- Parity: for each of the six dense architectures (reduced, 2 layers), the
+- Parity: for each of the ten architectures (reduced, 2 layers; zamba2 at 3
+  layers with its shared block after every 2, so one full group runs the
+  shared block and the last, partial group does not), the
   reference's ``model.init`` weights carried across by ``params_from_numpy``
   and the same numpy-seeded ids go through the reference's jitted
   ``forward`` / ``prefill`` / ``decode`` (no mesh) and the port's CPU path.
@@ -9,18 +11,24 @@
   compute, the reference's summation order being the only difference; to
   0.02 of it at bf16 compute, where XLA and torch round the bf16
   intermediates at different points (about two bf16 steps of a logit).
-  The caches agree slot for slot, ``positions`` exactly.
+  The caches agree entry for entry (the KV ring, the rwkv6 carries and wkv
+  state, the mamba2 conv and SSM states, zamba2's shared KV slots), integer
+  entries (``positions``) exactly.
 - A sliding-window case whose prompt is longer than the window (the
   prefill's ring wraps, then decode writes slot ``pos % W``), with the
   dense and the block-sparse attention schedules.
 - ``flash_attention_sparse`` against ``flash_attention`` (port) and against
-  the reference's, and parameter shapes against the reference's for tp 1
-  and 16 (the KV padding rule).
-- The reference's dense cases of ``tests/test_models.py`` run on the port:
-  forward shapes and finiteness, prefill/decode against forward, the
-  configs against the assignment, the 500k flags.
-- The families not ported yet raise ``NotImplementedError``; the model runs
-  on the card unless given ``device="cpu"``.
+  the reference's, and parameter shapes and logical axes against the
+  reference's for tp 1 and 16 (the KV padding rule: mixtral and dbrx pad
+  their 8 KV heads to 16), every family's init scales.
+- The activations the port writes out step by step (sigmoid, silu, the tanh
+  gelu) give ``jax.nn``'s bits at bf16 and f32.
+- The reference's cases of ``tests/test_models.py`` run on the port for
+  every architecture: forward shapes and finiteness, prefill/decode against
+  forward, the SWA window masking old tokens, the configs against the
+  assignment, the 500k flags (its mixer oracles are in
+  ``test_torch_moe_ssm.py``).
+- The model runs on the card unless given ``device="cpu"``.
 """
 
 import dataclasses
@@ -41,10 +49,9 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced, shape_cells  # no
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import build_model, param_shapes, params_from_numpy  # noqa: E402
 
-DENSE = ["qwen2.5-3b", "chatglm3-6b", "musicgen-medium", "chameleon-34b", "minitron-8b",
-         "phi4-mini-3.8b"]
-NOT_PORTED = {"dbrx-132b": "MoE", "mixtral-8x7b": "MoE", "rwkv6-3b": "rwkv6",
-              "zamba2-1.2b": "mamba2"}
+NEW = ["dbrx-132b", "mixtral-8x7b", "rwkv6-3b", "zamba2-1.2b"]  # MoE, rwkv6, mamba2
+# per-architecture changes to the 2-layer parity config
+OVER = {"zamba2-1.2b": dict(num_layers=3, shared_attn_every=2)}
 # (relative bound, argmax must agree) by compute dtype: see the docstring
 TOL = {"float32": (1e-4, True), "bfloat16": (0.02, False)}
 B, S, P = 2, 32, 24
@@ -75,9 +82,9 @@ def _f32(x):
 def _pair(arch, dtype, **over):
     """(reference model, its params, port model, port params) for a reduced
     2-layer config of ``arch`` at compute ``dtype``."""
-    ref_cfg = dataclasses.replace(ref_reduced(ref_get_config(arch)), num_layers=2, dtype=dtype,
-                                  **over)
-    cfg = dataclasses.replace(reduced(get_config(arch)), num_layers=2, dtype=dtype, **over)
+    over = {"num_layers": 2, **OVER.get(arch, {}), **over}
+    ref_cfg = dataclasses.replace(ref_reduced(ref_get_config(arch)), dtype=dtype, **over)
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype, **over)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     model = build_model(cfg, device="cpu")
@@ -129,21 +136,24 @@ def _assert_close(ref, got, dtype, what):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_matches_reference(arch, dtype):
     ref_fwd, fwd, _steps, _rc, _c = _runs(arch, dtype)
     _assert_close(ref_fwd, fwd, dtype, f"{arch} forward")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_decode_match_reference(arch, dtype):
     _rf, _f, steps, ref_cache, cache = _runs(arch, dtype)
     for i, (ref_l, got) in enumerate(steps):
         _assert_close(ref_l, got, dtype, f"{arch} {'prefill' if i == 0 else f'decode {P + i - 1}'}")
-    for name in ("k", "v"):
-        _assert_close(ref_cache[name], cache[name], dtype, f"{arch} cache {name}")
-    np.testing.assert_array_equal(np.asarray(ref_cache["positions"]), cache["positions"].numpy())
+    assert set(cache) == set(ref_cache), (sorted(cache), sorted(ref_cache))
+    for name, got in cache.items():
+        if got.dtype.is_floating_point:
+            _assert_close(ref_cache[name], got, dtype, f"{arch} cache {name}")
+        else:
+            np.testing.assert_array_equal(np.asarray(ref_cache[name]), got.numpy())
 
 
 @pytest.mark.parametrize("attn_impl", ["dense", "sparse"])
@@ -185,7 +195,7 @@ def test_flash_attention_sparse_matches_dense(causal, window, q_offset):
 
 
 @pytest.mark.parametrize("tp", [1, 16])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_shapes_match_reference(arch, tp):
     """Published widths, KV heads padded to the TP degree by the
     reference's rule: every parameter's shape is the reference's."""
@@ -196,6 +206,8 @@ def test_param_shapes_match_reference(arch, tp):
     got = _tree_map(lambda t: tuple(t.shape), param_shapes(model))
     assert got == want
     assert model.kv_eff == ref.kv_eff
+    if arch in ("mixtral-8x7b", "dbrx-132b"):  # 8 KV heads padded to tp 16
+        assert model.kv_eff == (16 if tp == 16 else 8)
     assert model.axes == ref.axes
 
 
@@ -228,10 +240,65 @@ def test_params_from_numpy_checks_shapes():
         params_from_numpy(model, tree)
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        build_model(reduced(get_config(arch)), device="cpu")
+# (path, expected std or "ones" / "zeros") per new family, at reduced widths
+_INIT = {
+    "dbrx-132b": [("layers/moe/router", "d"), ("layers/moe/wi_gate", "d"),
+                  ("layers/moe/wo", "ff"), ("layers/ln_att/bias", "zeros")],
+    "mixtral-8x7b": [("layers/moe/wi_up", "d"), ("layers/moe/wo", "ff"),
+                     ("layers/ln_mlp/scale", "ones")],
+    "rwkv6-3b": [("layers/tmix/wr", "d"), ("layers/tmix/w_lora_b", 0.05),
+                 ("layers/tmix/u_bonus", 0.5), ("layers/tmix/w_base", "zeros"),
+                 ("layers/tmix/mu_g", "zeros"), ("layers/cmix/wv", "ff"),
+                 ("layers/cmix/mu_r", "zeros")],
+    "zamba2-1.2b": [("layers/mixer/w_x", "d"), ("layers/mixer/conv_x", 0.5),
+                    ("layers/mixer/A_log", "zeros"), ("layers/mixer/D_skip", "ones"),
+                    ("layers/mixer/norm_scale", "ones"), ("shared/attn/wq", "d"),
+                    ("shared/mlp/wo", "ff")],
+}
+
+
+def _at(tree, path):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_init_scales_of_new_families(arch):
+    """Each new family's params: ones / zeros where the reference puts them,
+    normal draws at its scales (fan-in 1/sqrt(d) or 1/sqrt(d_ff), or the
+    fixed 0.05 / 0.5), and the reference's keys (``params_from_numpy``
+    accepts the reference's ``init`` tree)."""
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(2))
+    scales = {"d": cfg.d_model ** -0.5, "ff": cfg.d_ff ** -0.5}
+    for path, want in _INIT[arch]:
+        t = _at(params, path)
+        if want in ("ones", "zeros"):
+            assert torch.equal(t, torch.full_like(t, 1.0 if want == "ones" else 0.0)), path
+        else:
+            assert abs(float(t.std()) / scales.get(want, want) - 1) < 0.05, (path, float(t.std()))
+    ref_model = ref_build_model(ref_reduced(ref_get_config(arch)))
+    tree = _np_tree(ref_model.init(jax.random.PRNGKey(0)))
+    got = params_from_numpy(model, tree)
+    assert model.param_count(got) == model.param_count(params) == ref_model.param_count()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["sigmoid", "silu", "gelu"])
+def test_activations_match_jax_bits(act, dtype):
+    x = np.random.default_rng(4).normal(size=20_000).astype(np.float32) * 4
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    ref = {"sigmoid": jax.nn.sigmoid, "silu": jax.nn.silu, "gelu": jax.nn.gelu}[act]
+    port = {"sigmoid": L.sigmoid, "silu": L.silu, "gelu": L.gelu_tanh}[act]
+    want = _f32(jax.jit(ref)(jnp.asarray(x).astype(jdt)))
+    got = port(torch.from_numpy(x).to(tdt)).float().numpy()
+    if dtype == "bfloat16":  # the same bits, all but a few transcendental last-bit ties
+        assert float(np.mean(got != want)) < 0.002, act
+        np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
 
 
 def test_model_needs_a_card_by_default():
@@ -242,16 +309,23 @@ def test_model_needs_a_card_by_default():
 
 
 # ---------------------------------------------------------------------------
-# tests/test_models.py's dense cases, run on the port
+# tests/test_models.py's cases, run on the port
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=ARCH_IDS)
 def arch_setup(request):
+    """The reference case's own setup: its reduced config (bf16 compute)
+    and its ``init(PRNGKey(0))`` weights, carried over.  At bf16 a MoE
+    router's near-tie can pick another expert in ``forward`` than in
+    ``decode`` (their attention rounds differently), in the reference too:
+    its own case fails at 6 of PRNGKey(8..27) on reduced mixtral; the port's
+    f32 consistency on its own draws is in ``test_torch_moe_ssm.py``."""
     arch = request.param
     cfg = reduced(get_config(arch))
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    ref_model = ref_build_model(ref_reduced(ref_get_config(arch)))
+    params = params_from_numpy(model, _np_tree(ref_model.init(jax.random.PRNGKey(0))))
     return arch, cfg, model, params
 
 
@@ -277,6 +351,22 @@ def test_prefill_decode_matches_forward(arch_setup):
         errs.append(float((lg[:, 0] - full_logits[:, t]).abs().max()))
     scale = float(full_logits.abs().max())
     assert max(errs) < 0.06 * max(scale, 1.0), (arch, errs)
+
+
+def test_swa_window_masks_old_tokens():
+    """Mixtral SWA: tokens beyond the window must not influence logits."""
+    cfg = dataclasses.replace(reduced(get_config("mixtral-8x7b")), window=8, num_layers=1)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(8)
+    ids1 = rng.integers(0, cfg.vocab_size, size=(1, 32))
+    ids2 = ids1.copy()
+    ids2[0, :8] = (ids2[0, :8] + 7) % cfg.vocab_size  # outside last token's window
+    l1, _ = model.forward(params, torch.from_numpy(ids1))
+    l2, _ = model.forward(params, torch.from_numpy(ids2))
+    l1, l2 = l1.float(), l2.float()
+    np.testing.assert_allclose(l1[0, -1].numpy(), l2[0, -1].numpy(), rtol=1e-4, atol=1e-4)
+    assert float((l1[0, 8] - l2[0, 8]).abs().max()) > 1e-4  # inside the window it does
 
 
 def test_long_500k_applicability_flags():

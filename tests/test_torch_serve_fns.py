@@ -7,7 +7,8 @@ run: its model's jitted ``prefill`` / ``decode`` without a mesh, its
 ``make_probe_fn`` on a one-device mesh, and the kNN-LM mixing formula of
 ``repro/serving/serve_loop.py:653-679``, written out in numpy below.
 
-- kNN-LM decode at f32 (a plain head and musicgen's codebook heads): the
+- kNN-LM decode at f32 (a plain head and musicgen's codebook heads, and the
+  rwkv6, zamba2 and MoE families, whose caches are their own): the
   port's probe returns the oracle probe's neighbour tokens, its soft-
   embedding queries agree to 1e-5, and its mixed logits to 1e-4.
 - ``tests/test_serving.py``'s two serving cases (``:61``, ``:96``) on the
@@ -16,6 +17,8 @@ run: its model's jitted ``prefill`` / ``decode`` without a mesh, its
   same weights (f32).
 - Sampling draws from an explicit generator; params not in the serving
   dtype are refused; the steps run on the card unless told otherwise.
+- The launcher's ``main`` serves each new family reduced on the CPU with
+  retrieval, and ``--full`` counts a MoE's experts against the card.
 """
 
 import dataclasses
@@ -44,12 +47,17 @@ from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns  # noqa: 
 CPU = "cpu"
 
 
+# zamba2 at 3 layers with its shared block every 2: one shared invocation
+OVER = {"zamba2-1.2b": dict(num_layers=3, shared_attn_every=2)}
+NEW = ["rwkv6-3b", "zamba2-1.2b", "mixtral-8x7b"]
+
+
 def _pair(arch, seed=0, **over):
     """Reference model + f32 params and the port's twin on the CPU (f32
     compute), reduced to 2 layers."""
-    ref_cfg = dataclasses.replace(ref_reduced(ref_get_config(arch)), num_layers=2,
-                                  dtype="float32", **over)
-    cfg = dataclasses.replace(reduced(get_config(arch)), num_layers=2, dtype="float32", **over)
+    over = {"num_layers": 2, **OVER.get(arch, {}), **over}
+    ref_cfg = dataclasses.replace(ref_reduced(ref_get_config(arch)), dtype="float32", **over)
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32", **over)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(seed))
     model = build_model(cfg, device=CPU)
@@ -82,7 +90,7 @@ def _knn_lm_oracle(logits, head, dists, tokens, lam, temp, codebooks):
     return q, np.log(np.maximum(mixed, 1e-20))[:, None]
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "musicgen-medium"] + NEW)
 def test_knn_lm_decode_matches_oracle(arch):
     ref_model, ref_params, model, params = _pair(arch)
     cfg = model.cfg
@@ -183,7 +191,7 @@ def test_greedy_generation_loop():
     assert all(0 <= t < cfg.vocab_size for t in outs)
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "musicgen-medium"] + NEW)
 def test_greedy_loop_matches_reference(arch):
     """The reference's own greedy loop, unsharded (its jitted prefill and
     decode, argmax), gives the port's tokens on the same f32 weights."""
@@ -246,3 +254,39 @@ def test_serve_fns_need_a_card_by_default():
     cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), num_layers=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_serve_fns(build_model(cfg, device=CPU))
+
+
+@pytest.mark.parametrize("arch,retrieval", [("dbrx-132b", False), ("mixtral-8x7b", True),
+                                            ("rwkv6-3b", False), ("zamba2-1.2b", False)])
+def test_launcher_serves_new_families(arch, retrieval, capsys):
+    """``python -m repro_torch.launch.serve --arch A [--retrieval] --device
+    cpu`` at the reduced config, a short run (the corpus index, the same
+    for every family, built once)."""
+    from repro_torch.launch.serve import main
+
+    flags = ["--retrieval"] if retrieval else []
+    assert main(["--arch", arch, "--batch", "2", "--prompt", "8", "--gen", "4", *flags,
+                 "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == (f"[serve] {arch}: batch=2 prompt=8 gen=4 "
+                      f"retrieval={'on' if retrieval else 'off'}")
+    assert out[1].startswith("  prefill: ") and out[2].startswith("  decode:  "), out
+
+
+def test_full_launch_counts_experts(monkeypatch):
+    """``--full`` refuses a model whose bf16 parameters, experts included,
+    exceed 85 % of the card: mixtral-8x7b (46.7 B) on an 80 GB card; the
+    rwkv6 and zamba2 models fit.  The count is the parameter tree's."""
+    from repro_torch.launch import serve
+
+    class Props:
+        total_memory = 80 * 2**30
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props())
+    cuda = torch.device("cuda", 0)
+    mixtral = build_model(get_config("mixtral-8x7b"), device=CPU)
+    assert mixtral.param_count() > 46_700_000_000
+    with pytest.raises(ValueError, match="mixtral-8x7b: 93.4 GB"):
+        serve._check_fits(mixtral, cuda, torch.bfloat16)
+    for arch in ("rwkv6-3b", "zamba2-1.2b"):
+        serve._check_fits(build_model(get_config(arch), device=CPU), cuda, torch.bfloat16)

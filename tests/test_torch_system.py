@@ -160,6 +160,15 @@ assert [len(h) for h in r.hits] == [4, 4, 4]
 import runpy
 import repro_torch.configs, repro_torch.models.model, repro_torch.serving.serve_loop
 import repro_torch.launch.serve
+import repro_torch.models.moe, repro_torch.models.rwkv6, repro_torch.models.mamba2
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.models.model import build_model
+for arch in ("mixtral-8x7b", "rwkv6-3b", "zamba2-1.2b"):
+    m = build_model(reduced(get_config(arch)), device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    _, cache = m.prefill(p, torch.zeros((1, 4), dtype=torch.int64), m.init_cache(1, 6))
+    m.decode(p, torch.zeros((1, 1), dtype=torch.int64), cache, 4)
 runpy.run_path({str(Path(SRC).parent / "examples" / "torch_serve_retrieval.py")!r})
 from repro_torch.serving import make_serve_fns, ServeConfig
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
