@@ -122,6 +122,25 @@ no result line):
    held within 0.06 of the logit scale.  ``kmeans_assign`` and
    ``rerank_distances`` run at D = 2,560, 2,048 and 4,096.
 
+13. Training.  (a) One train step (2 microbatches, remat, AdamW) of each
+   family's reduced config at f32 compute (qwen2.5-3b, mixtral-8x7b,
+   rwkv6-3b, zamba2-1.2b, musicgen-medium) on the card against the same
+   step on the CPU from the same weights: loss, grad norm, the gradient
+   and the moments (v as sqrt(v)) within 1e-5 of scale (rwkv6 3e-5,
+   zamba2 3e-4: its 12-layer scan differs by 9.3e-5 between two f32
+   implementations on one CPU already), the params within
+   1e-6 of the CPU's AdamW given the card's gradient.  (b) qwen2.5-3b at its
+   published widths (f32 masters, bf16 compute, batch 8 x 128, 2
+   microbatches, lr 1e-3): 12 steps on a memorisable pair of batches (the
+   loss falls by more than 0.5), an async checkpoint of the whole state
+   (~40.8 GB) at step 9 through the catalog, the state dropped and
+   restored bit for bit, step 10 again within 1e-4 of its loss; step time
+   beside its bounds, device busy time, peak memory, save and restore
+   seconds.  (c) ``examples/torch_train_checkpointed.py`` in-process,
+   then ``python -m repro_torch.launch.train`` twice on one warehouse (the
+   second resumes from the committed step 10); run before (b), away from
+   its 40.8 GB of disk writes.  No ANN kernel runs here.
+
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
 ``pq_scan`` (bit for bit) against their plain versions, and times each
@@ -155,7 +174,9 @@ Every phase from 3 on sets the launch counts to 0 before it runs and reads
 them after (``kmeans_assign`` also by (D, K), ``gather_rerank`` by
 (P, k), ``rerank_distances`` by tile, where phases 3-9 must stay on the
 shapes phase 2 checked; phase 3 counts its ground truth; phases 10 and 11
-hold each call against the plain version instead, as does phase 12);
+hold each call against the plain version instead, as does phase 12;
+phase 13's training path, 13b and the 13c example, must launch none:
+13a holds a step against the CPU's, as phase 2 holds a kernel);
 each kernel but ``pq_scan`` must have run on these paths
 (``pq_scan`` has no production caller, in this package or the reference,
 so phase 2 alone holds it).  The line before the last is the ``kernels``
@@ -3447,6 +3468,370 @@ def phase_lm_families(torch, dev, seed: int, workdir: str):
     return launches, facts
 
 
+# -- phase 13 ---------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"  # configs/qwen2_5_3b.py (hf:Qwen/Qwen2.5-3B), its published widths
+# 13a: every family's reduced config, f32 compute, the card's step against the CPU's
+TRAIN_FAMILIES = ("qwen2.5-3b", "mixtral-8x7b", "rwkv6-3b", "zamba2-1.2b", "musicgen-medium")
+# the card's step against the CPU's, of each leaf's scale: 1e-5, but for
+# the two recurrent stacks, where two f32 implementations on one CPU (the
+# port and the reference, tests/test_torch_train_step.py's oracle at these
+# configs: rwkv6 4 layers, zamba2 12, batch 8 x 128) already differ by up to
+# 1.0e-5 (rwkv6) and 9.3e-5 (zamba2: the scan's sums of exponentiated decays)
+TRAIN_PARITY_TOL = {"rwkv6-3b": 3e-5, "zamba2-1.2b": 3e-4}
+TRAIN_PARITY_DEFAULT = 1e-5
+# launch/train.py's defaults: batch 8 of 128 tokens, 2 microbatches, lr 1e-3, remat
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR = 8, 128, 2, 1e-3
+# 13b: 12 steps on the reference test's memorisable pair, the save at step 9
+TRAIN_STEPS, TRAIN_SAVE_AT = 12, 9
+
+
+def _train_cfg():
+    from repro_torch.training.train_loop import TrainStepConfig
+
+    return TrainStepConfig(microbatches=TRAIN_MICRO, lr=TRAIN_LR, remat=True)
+
+
+def _capture_grads(torch):
+    """Spies on the train step's ``adamw_update``: returns (list of the
+    gradient trees it was handed, each copied to the CPU, restore)."""
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import tree_map
+
+    real = train_loop.adamw_update
+    seen: list = []
+
+    def spy(params, grads, state, **kw):
+        seen.append(tree_map(lambda g: g.detach().to("cpu", copy=True), grads))
+        return real(params, grads, state, **kw)
+
+    train_loop.adamw_update = spy
+
+    def restore():
+        train_loop.adamw_update = real
+    return seen, restore
+
+
+def _leaf_err(name, want, got, floor=0.0) -> float:
+    """max |got - want| over max(floor, max |want|), on the CPU in f32."""
+    want, got = want.float().cpu(), got.float().cpu()
+    if want.shape != got.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    scale = max(floor, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    return err / scale if scale else err
+
+
+def phase_train_parity(torch, dev, seed: int):
+    """13a: one train step (``microbatches=2``, remat, the launcher's batch
+    of 8 x 128 tokens) of each family's reduced config at f32 compute on the
+    card and on the CPU from the same weights (drawn once on the CPU from
+    ``seed`` and copied): loss and grad norm within 1e-5 relative; the
+    gradient handed to AdamW and the updated moments within 1e-5 of each
+    leaf's scale (max |CPU leaf|; ``v``, a squared gradient, as sqrt(v), in
+    a gradient's units; rwkv6 and zamba2 within ``TRAIN_PARITY_TOL``); the
+    updated params within 1e-6 of max(1, |p|) of
+    the CPU's ``adamw_update`` applied to the same start state and the
+    card's gradient (AdamW's eps amplifies a gradient difference near 0,
+    so the params are held given the gradient: the chain from the CPU step
+    to the reference is ``tests/test_torch_train_step.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import adamw_init, adamw_update, tree_map
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.checkpoint import _flatten_with_paths
+
+    tc = _train_cfg()
+    facts = {}
+    seen, restore = _capture_grads(torch)
+    try:
+        for arch in TRAIN_FAMILIES:
+            t0 = time.time()
+            cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+            cpu_model = build_model(cfg, device="cpu")
+            card_model = build_model(cfg, device=dev)
+            p_cpu = cpu_model.init(torch.Generator().manual_seed(seed))
+            o_cpu = adamw_init(p_cpu)
+            start = tree_map(torch.clone, {"params": p_cpu, "opt": o_cpu})
+            p_card = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+            o_card = adamw_init(p_card)
+            ids, labels = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                          batch_size=TRAIN_BATCH, num_codebooks=cfg.num_codebooks,
+                                          seed=seed).batch(0)
+            seen.clear()
+            p_card, o_card, m_card = make_train_step(card_model, tc, device=dev)[0](
+                p_card, o_card, ids, labels)
+            torch.cuda.synchronize()
+            p_cpu, o_cpu, m_cpu = make_train_step(cpu_model, tc, device="cpu")[0](
+                p_cpu, o_cpu, ids, labels)
+            g_card, g_cpu = seen
+            given_p, given_o, _ = adamw_update(
+                start["params"], g_card, start["opt"], lr=tc.lr, weight_decay=tc.weight_decay,
+                clip_norm=tc.clip_norm)
+            err = {k: abs(float(m_card[k]) - float(m_cpu[k])) / max(1.0, abs(float(m_cpu[k])))
+                   for k in ("loss", "grad_norm")}
+            sqrt = lambda tree: tree_map(torch.sqrt, tree)  # noqa: E731
+            tol = TRAIN_PARITY_TOL.get(arch, TRAIN_PARITY_DEFAULT)
+            for what, want, got, floor, bound in (
+                    ("grad", g_cpu, g_card, 0.0, tol),
+                    ("m", o_cpu.m, o_card.m, 0.0, tol),
+                    ("sqrt v", sqrt(o_cpu.v), sqrt(o_card.v), 0.0, tol),
+                    ("params given the gradient", given_p, p_card, 1.0, 1e-6),
+                    ("m given the gradient", given_o.m, o_card.m, 0.0, TRAIN_PARITY_DEFAULT),
+                    ("sqrt v given the gradient", sqrt(given_o.v), sqrt(o_card.v), 0.0,
+                     TRAIN_PARITY_DEFAULT)):
+                errs = {name: _leaf_err(name, w, g, floor) for (name, w), (_n, g) in
+                        zip(_flatten_with_paths(want), _flatten_with_paths(got))}
+                worst = max(errs, key=errs.get)
+                err[what] = (worst, errs[worst])
+                if errs[worst] > bound:
+                    raise AssertionError(f"phase 13a {arch}: {what} {worst} off by {errs[worst]:.3g} "
+                                         f"of its scale (bound {bound})")
+            if max(err["loss"], err["grad_norm"]) > TRAIN_PARITY_DEFAULT:
+                raise AssertionError(f"phase 13a {arch}: loss / grad norm {err}")
+            facts[arch] = dict(loss=float(m_card["loss"]), grad_norm=float(m_card["grad_norm"]),
+                               err=err, seconds=time.time() - t0)
+            log(f"phase 13a {arch} (reduced, f32): card loss {float(m_card['loss']):.6f} "
+                f"(CPU {float(m_cpu['loss']):.6f}), grad norm {float(m_card['grad_norm']):.6f}; "
+                f"worst leaf by link { {k: (v if isinstance(v, float) else f'{v[0]} {v[1]:.3g}') for k, v in err.items()} } "
+                f"in {time.time() - t0:.2f} s")
+            del p_card, o_card, start
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+    return facts
+
+
+def _bit_sums(torch, tree) -> dict:
+    """Per leaf, the int64 sums of its int32 bit view over 64 chunks
+    (on the device; a changed bit changes its chunk's sum)."""
+    from repro_torch.training.checkpoint import _flatten_with_paths
+
+    out = {}
+    for name, t in _flatten_with_paths(tree):
+        bits = t.detach().reshape(-1).view(torch.int32)
+        out[name] = torch.stack([c.to(torch.int64).sum() for c in bits.chunk(64)]).cpu()
+    return out
+
+
+def phase_train_full(torch, dev, seed: int, workdir: str, smi: str):
+    """13b: qwen2.5-3b at its published widths (no cut), f32 masters, bf16
+    compute, the launcher's defaults: 12 steps on
+    ``SyntheticTokens(seed=7).batch(i % 2)`` (the reference test's
+    memorisable pair) with the loss falling by more than 0.5; an async save
+    at step 9 through the catalog, steps 10-11, the state dropped; the
+    restore (latest step 9, every leaf's bits checked by chunked sums taken
+    on the card) and step 10 again, its loss within 1e-4 of the first
+    run's.  Returns (launches, facts)."""
+    import shutil as _shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.iceberg.catalog import RestCatalog
+    from repro_torch.kernels import _build
+    from repro_torch.lakehouse.objectstore import ObjectStore
+    from repro_torch.launch.train import check_fits
+    from repro_torch.models.model import build_model, param_shapes
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import AdamWState, tree_map
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    state_bytes = check_fits(model, dev)
+    n = model.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop_ms = 6 * n * tokens / PEAK_BF16 * 1e3
+    opt_bytes = 28 * n  # AdamW reads p, g, m, v and writes p, m, v, f32
+    opt_ms = opt_bytes / PEAK_BYTES * 1e3
+    log(f"phase 13b {TRAIN_ARCH}: {n:,} params, {state_bytes / 1e9:.2f} GB of training state; "
+        f"bounds: 6 N x {tokens} tokens at {PEAK_BF16 / 1e12:.0f} TFLOP/s = {flop_ms:.1f} ms, the "
+        f"optimizer's {opt_bytes / 1e9:.1f} GB at {PEAK_BYTES / 1e12:.2f} TB/s = {opt_ms:.1f} ms; "
+        f"device memory in use before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params, opt = init_train_state(model, torch.Generator(device=dev).manual_seed(seed))
+    step, _ = make_train_step(model, _train_cfg(), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=7)
+    warehouse = tempfile.mkdtemp(prefix="ckpt_", dir=workdir)
+    free = _shutil.disk_usage(warehouse).free
+    need = 12 * n  # the checkpoint: f32 params, m and v
+    if free < 1.05 * need:
+        raise AssertionError(f"phase 13b: {free / 1e9:.1f} GB free under {warehouse}, the checkpoint "
+                             f"needs {need / 1e9:.1f} GB")
+    store = ObjectStore(warehouse)
+    mgr = CheckpointManager(RestCatalog(store), async_save=True)
+    # the save's parts: the leaves' puts (serialised, hashed, written) and
+    # the commit, on the save's thread
+    put, commit = store.put, mgr.catalog.commit_with_retries
+    io_log = {"put_s": 0.0, "bytes": 0, "commit_s": 0.0, "end": None}
+
+    def timed_put(key, data, **kw):
+        t = time.perf_counter()
+        out = put(key, data, **kw)
+        if "/data/" in key:
+            io_log["put_s"] += time.perf_counter() - t
+            io_log["bytes"] += len(data)
+        return out
+
+    def timed_commit(*a, **kw):
+        t = time.perf_counter()
+        out = commit(*a, **kw)
+        io_log["commit_s"] += time.perf_counter() - t
+        io_log["end"] = time.perf_counter()
+        return out
+
+    store.put, mgr.catalog.commit_with_retries = timed_put, timed_commit
+    losses, step_ms = [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            ids, labels = data.batch(i % 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, ids, labels)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            if i == TRAIN_SAVE_AT:
+                state = {"params": params, "opt": opt}
+                sums = _bit_sums(torch, state)
+                t_save = time.perf_counter()
+                mgr.save(i, state, metrics={"loss": m["loss"]})
+                save_return = time.perf_counter()
+                del state
+        peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t
+        # one more step under the profiler: device events and busy time
+        extra = data.batch(TRAIN_STEPS % 2)
+        per_step, busy = decode_profile(torch, lambda _i: step(params, opt, *extra), n_steps=1)
+        del params, opt, m
+        torch.cuda.empty_cache()
+        held_after_drop = torch.cuda.memory_allocated()
+        like = {"params": tree_map(lambda t: torch.empty(t.shape, device=dev), param_shapes(model))}
+        like["opt"] = AdamWState(tree_map(lambda t: torch.empty(t.shape, device=dev), like["params"]),
+                                 tree_map(lambda t: torch.empty(t.shape, device=dev), like["params"]),
+                                 torch.zeros((), dtype=torch.int32, device=dev))
+        t = time.perf_counter()
+        latest = mgr.latest_step()
+        restored, at = mgr.restore(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        got = _bit_sums(torch, restored)
+        differ = [k for k in sums if not torch.equal(sums[k], got[k])]
+        ids, labels = data.batch((TRAIN_SAVE_AT + 1) % 2)
+        _p, _o, m10 = step(restored["params"], restored["opt"], ids, labels)
+        resumed_loss = float(m10["loss"])
+        del restored, like, _p, _o
+    finally:
+        store.put, mgr.catalog.commit_with_retries = put, commit
+        _shutil.rmtree(warehouse, ignore_errors=True)
+    launches = _build.launch_counts()
+    torch.cuda.empty_cache()
+    med = float(np.median(step_ms[2:]))
+    save = dict(host_copy_s=save_return - t_save, put_s=io_log["put_s"], commit_s=io_log["commit_s"],
+                thread_s=io_log["end"] - save_return, wait_s=wait_s, bytes=io_log["bytes"],
+                free_bytes=free)
+    facts = dict(params=n, losses=losses, step_ms=step_ms, median_ms=med, tok_s=tokens / med * 1e3,
+                 flop_bound_ms=flop_ms, opt_bound_ms=opt_ms, events_step=per_step, busy_ms=busy,
+                 peak_gb=peak / 1e9, init_s=init_s, save=save, restore_s=restore_s,
+                 latest=latest, resumed_loss=resumed_loss)
+    log(f"phase 13b [{smi}] losses {[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in step_ms]}")
+    log(f"phase 13b step {med:.2f} ms (median of steps 2-{TRAIN_STEPS - 1}), {tokens / med * 1e3:.1f} tok/s; "
+        f"bounds {flop_ms:.1f} ms (FLOPs) and {opt_ms:.1f} ms (optimizer bytes); "
+        + ("no device events in the trace: device busy not measured" if busy is None else
+           f"{per_step:.0f} device events a step, device busy {busy:.2f} ms (idle share "
+           f"{1 - busy / med:.3f} of the median step)")
+        + f"; peak {peak / 1e9:.2f} GB; init {init_s:.2f} s")
+    log(f"phase 13b save at step {TRAIN_SAVE_AT}: {io_log['bytes'] / 1e9:.3f} GB to {warehouse} "
+        f"({free / 1e9:.1f} GB free before); host copy {save['host_copy_s']:.2f} s, then on its thread "
+        f"{save['thread_s']:.2f} s (puts {save['put_s']:.2f} s, commit {save['commit_s']:.3f} s), the "
+        f"wait after step {TRAIN_STEPS - 1} {wait_s:.2f} s; device memory after the drop "
+        f"{held_after_drop / 1e9:.2f} GB; restore {restore_s:.2f} s (latest step {latest}); "
+        f"leaves with other bits {differ}; step {TRAIN_SAVE_AT + 1} again: loss {resumed_loss:.6f} "
+        f"(first run {losses[TRAIN_SAVE_AT + 1]:.6f}); launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.5:
+        raise AssertionError(f"phase 13b: the loss did not fall by 0.5: {losses}")
+    if latest != TRAIN_SAVE_AT or at != TRAIN_SAVE_AT or differ:
+        raise AssertionError(f"phase 13b: restored step {latest}/{at}, leaves differing {differ}")
+    if abs(resumed_loss - losses[TRAIN_SAVE_AT + 1]) > 1e-4:
+        raise AssertionError(f"phase 13b: resumed step {TRAIN_SAVE_AT + 1} loss {resumed_loss} != "
+                             f"{losses[TRAIN_SAVE_AT + 1]}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 13b: the training path launched ANN kernels {launches}")
+    return launches, facts
+
+
+def phase_train_example(torch):
+    """13c (1): ``examples/torch_train_checkpointed.py`` in-process through
+    ``main("cuda")``: resumed at the committed step 15 (steps 5, 10, 15
+    kept), the steps run before the crash and after the resume with the
+    same losses, the loss falling."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import _build
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        facts = _example("train_checkpointed").main("cuda")
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = _build.launch_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    again = {i: (facts["losses"][i], facts["resumed_losses"][i]) for i in (16, 17)}
+    log(f"phase 13c train_checkpointed: {secs:.2f} s; resumed at {facts['resumed_at']} of "
+        f"{facts['available']}; losses before / after the resume {again}; final {facts['final_loss']:.4f}; "
+        f"launches {launches}")
+    if facts["resumed_at"] != 15 or facts["available"] != [5, 10, 15]:
+        raise AssertionError(f"train_checkpointed: resumed at {facts['resumed_at']}, {facts['available']}")
+    if any(abs(a - b) > 1e-4 for a, b in again.values()) or not facts["final_loss"] < facts["losses"][0] - 2:
+        raise AssertionError(f"train_checkpointed: losses {facts}")
+    if any(launches.values()):
+        raise AssertionError(f"train_checkpointed launched ANN kernels {launches}")
+    facts["seconds"] = secs
+    return launches
+
+
+def phase_train_launcher(workdir: str):
+    """13c (2): ``python -m repro_torch.launch.train --arch qwen2.5-3b --steps
+    12 --ckpt-every 5 --warehouse DIR`` as a process, twice on one
+    warehouse: both exit 0 and the second prints "resumed from committed
+    step 10"."""
+    import os
+
+    warehouse = tempfile.mkdtemp(prefix="train_launcher_", dir=workdir)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--steps", "12",
+           "--ckpt-every", "5", "--warehouse", warehouse]
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    out = []
+    for run in (1, 2):
+        t0 = time.time()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(HERE), env=env)
+        secs = time.time() - t0
+        log(f"phase 13c {' '.join(cmd[1:6])} ... run {run}: rc {proc.returncode} in {secs:.2f} s; "
+            f"{proc.stdout.strip().splitlines()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"train launcher run {run}: rc {proc.returncode}, "
+                                 f"stderr {proc.stderr[-2000:]}")
+        out.append((secs, proc.stdout))
+    if "resumed from committed step 10" not in out[1][1]:
+        raise AssertionError(f"train launcher did not resume: {out[1][1]}")
+    return dict(seconds=[s for s, _ in out])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
@@ -3526,6 +3911,13 @@ def main() -> int:
         timed("11c serve launcher", phase_lm_launcher)
         got, _facts = timed("12 LM families", phase_lm_families, torch, dev, args.seed, workdir)
         per_phase["12"] = got
+        del ctx  # phases 3-9's deployment: the card's memory goes to phase 13b
+        torch.cuda.empty_cache()
+        timed("13a train parity", phase_train_parity, torch, dev, args.seed)
+        per_phase["13c"] = timed("13c train example", phase_train_example, torch)
+        timed("13c train launcher", phase_train_launcher, workdir)
+        got, _facts = timed("13b train qwen2.5-3b", phase_train_full, torch, dev, args.seed, workdir, smi)
+        per_phase["13b"] = got
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}

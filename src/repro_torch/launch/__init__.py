@@ -1,3 +1,3 @@
-"""Launchers.  Port of ``repro/launch``: ``serve`` (one card); ``mesh``,
-``train``, the dry-runs and the hill-climb wait for ``models/sharding.py``
-and ``training/`` (ROADMAP Queue 1, item 5)."""
+"""Launchers.  Port of ``repro/launch``: ``serve`` and ``train`` (one card);
+``mesh``, the dry-runs and the hill-climb wait for ``models/sharding.py``
+(ROADMAP Queue 1, item 5c)."""

@@ -317,9 +317,14 @@ def flash_attention_sparse(
                 continue  # entirely outside the window
             pairs.append((qi, ki))
 
-    m = torch.full((nq, B, KV, G, q_chunk), -math.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((nq, B, KV, G, q_chunk), dtype=torch.float32, device=dev)
-    acc = torch.zeros((nq, B, KV, G, q_chunk, hd), dtype=torch.float32, device=dev)
+    # each q block's state in a list of its own (as the dense schedule keeps
+    # it in locals): rebinding an entry, never writing into a tensor that
+    # autograd saved for the backward
+    m = [torch.full((B, KV, G, q_chunk), -math.inf, dtype=torch.float32, device=dev)
+         for _ in range(nq)]
+    l = [torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=dev) for _ in range(nq)]
+    acc = [torch.zeros((B, KV, G, q_chunk, hd), dtype=torch.float32, device=dev)
+           for _ in range(nq)]
     for qi, ki in pairs:
         q_blk = qg[:, qi * q_chunk:(qi + 1) * q_chunk].float()
         k_blk = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
@@ -329,7 +334,7 @@ def flash_attention_sparse(
         s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk.float()) * scale
         mask = _block_mask(q_pos, kv_pos, causal, window)
         m[qi], l[qi], acc[qi] = _online_softmax_step(m[qi], l[qi], acc[qi], s, mask, v_blk)
-    out = acc / torch.clamp(l, min=1e-20)[..., None]  # (nq, B, KV, G, qc, hd)
+    out = torch.stack(acc) / torch.clamp(torch.stack(l), min=1e-20)[..., None]  # (nq, B, KV, G, qc, hd)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, KV, G, hd)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 

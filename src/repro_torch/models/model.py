@@ -125,7 +125,10 @@ def _init_params(cfg: ModelConfig, kv_eff: int, generator, *, dtype=torch.float3
 
 
 def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked ``layers`` tree (views)."""
+    """Layer ``i``'s slice of a stacked ``layers`` tree (views), or entry
+    ``i`` of a list of per-layer trees (the train step's split)."""
+    if isinstance(tree, list):
+        return tree[i]
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -136,19 +139,28 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
+# ``_embed`` casts the table before the gather, as the reference does: the
+# values are the same either way, but the gradient is not.  Cast first, the
+# rows of a repeated token are summed into the table's gradient in the
+# compute dtype and only then widened to f32, the reference's order (at bf16
+# the other order, summing in f32, splits the ``embed`` gradient from the
+# reference's).
+
+
 def _embed(params, cfg: ModelConfig, ids: torch.Tensor, dtype) -> torch.Tensor:
     if cfg.num_codebooks:
         # ids: (B, S, CB)
-        tables = params["embed"]  # (CB, V, D)
-        x = tables[0][ids[..., 0]].to(dtype)
+        tables = params["embed"].to(dtype)  # (CB, V, D)
+        x = tables[0][ids[..., 0]]
         for cb in range(1, cfg.num_codebooks):
-            x = x + tables[cb][ids[..., cb]].to(dtype)
+            x = x + tables[cb][ids[..., cb]]
         S = ids.shape[1]
         return x + params["pos_embed"][:S][None, :, :].to(dtype)
-    return params["embed"][ids].to(dtype)
+    return params["embed"].to(dtype)[ids]
 
 
 def _embed_decode(params, cfg: ModelConfig, ids: torch.Tensor, pos: int, dtype) -> torch.Tensor:
+    # no gradient here: the rows are gathered first and only they are cast
     if cfg.num_codebooks:
         tables = params["embed"]
         x = tables[0][ids[..., 0]].to(dtype)

@@ -20,6 +20,15 @@ with: the reference's ``serve_retrieval.py`` stops at a
 in-process on the CPU and its facts are asserted directly: the printed
 lines, two shards, both throughput lines, retrieval moving the logits, and
 every indexed vector's payload its own corpus token.
+
+``examples/torch_train_checkpointed.py`` has none either: the reference's
+``train_checkpointed.py`` prints its model line and its first step, then
+stops in its second step at the ``ShardingTypeError`` of its
+``make_train_step`` (checked here, as ROADMAP Queue 3 records).  The port's example runs in-process on the CPU and is
+held to its own facts: the reference's model line, the committed step it
+resumes at (15 of 30 steps, saves every 5 and at the crash step), the
+steps retained (``keep_last=3``), falling losses, and the two steps run
+both before the crash and after the resume giving the same losses.
 """
 
 import contextlib
@@ -95,7 +104,7 @@ def test_example_prints_the_reference_facts(runs, name):
     assert got[-1].endswith("done.")
 
 
-@pytest.mark.parametrize("name", sorted(MASKS) + ["serve_retrieval"])
+@pytest.mark.parametrize("name", sorted(MASKS) + ["serve_retrieval", "train_checkpointed"])
 def test_example_imports_no_jax(name):
     """Importing a port example loads ``repro_torch`` and neither ``jax`` nor
     ``repro``."""
@@ -199,3 +208,54 @@ def test_serve_retrieval_payload_rows():
             ref_rows = loc.row_offset[: g.n].astype(np.int64) + 1000 * loc.file_idx[: g.n]
             moved += int((ref_rows != rows).sum())
     assert moved > 0  # the partitioner's file order is not the table's here
+
+
+def test_train_checkpointed_reference_stops_at_its_train_step(tmp_path):
+    p = subprocess.run([sys.executable, str(ROOT / "examples" / "train_checkpointed.py")],
+                       capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu"))
+    assert p.returncode != 0
+    assert "ShardingTypeError" in p.stderr
+    lines = p.stdout.splitlines()
+    assert lines[0] == "model: 4.9M params (4L × d256)" and len(lines) == 2, lines
+    assert re.fullmatch(r"  step   0 loss \d+\.\d{3} gnorm \d+\.\d\d  \[checkpointed\]", lines[1])
+
+
+@pytest.fixture(scope="module")
+def train_checkpointed():
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_checkpointed", ROOT / "examples" / "torch_train_checkpointed.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # thousands of small ops: see test_torch_train_step.py
+    try:
+        with contextlib.redirect_stdout(buf):
+            facts = mod.main("cpu")
+    finally:
+        torch.set_num_threads(n)
+    return buf.getvalue().splitlines(), facts
+
+
+def test_train_checkpointed_facts(train_checkpointed):
+    lines, facts = train_checkpointed
+    assert lines[0] == "model: 4.9M params (4L × d256)"
+    assert facts["resumed_at"] == 15 and facts["available"] == [5, 10, 15]
+    assert sorted(facts["losses"]) == list(range(18))
+    assert sorted(facts["resumed_losses"]) == list(range(16, 30))
+    losses = facts["losses"]
+    assert losses[17] < losses[0] - 2.0, losses
+    for i in (16, 17):  # run before the crash and again after the resume
+        assert abs(facts["resumed_losses"][i] - losses[i]) < 1e-4, (i, facts)
+    want = ([r"model: 4\.9M params \(4L × d256\)"]
+            + [rf"  step {i:3d} loss \d+\.\d{{3}}( gnorm \d+\.\d\d  \[checkpointed\])?" for i in range(18)]
+            + [r"== simulated crash after step 17; resuming from catalog ==",
+               r"  restored committed step 15 \(available: \[5, 10, 15\]\)",
+               r"  step  20 loss \d+\.\d{3}", r"  step  25 loss \d+\.\d{3}",
+               r"done in \d+s — final loss \d+\.\d{3}"])
+    assert len(lines) == len(want), lines
+    for pattern, line in zip(want, lines):
+        assert re.fullmatch(pattern, line), (pattern, line)
+    saved = [i for i, line in enumerate(lines[1:19]) if line.endswith("[checkpointed]")]
+    assert saved == [0, 5, 10, 15]

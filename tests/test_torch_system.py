@@ -8,8 +8,10 @@
 - ``repro_torch`` builds an index; ``repro`` probes it with recall@10 of at
   least 0.9 against brute force.
 - The port never loads ``jax`` or ``repro`` (through a filtered
-  ``probe_batch`` too), and its entry points refuse to run on a missing
-  card instead of falling back to the CPU.
+  ``probe_batch`` too, the LLM substrate, and training: a train step, a
+  checkpoint saved and restored, the launcher and the example imported),
+  and its entry points refuse to run on a missing card instead of falling
+  back to the CPU.
 - Filtered, batched and fresh-tail probes (the second half of this file):
   on catalogs ``repro`` built, the port gives the reference's hits, plans
   and dispatch counters, and its unified, split-flavor and group-loop
@@ -171,6 +173,23 @@ for arch in ("mixtral-8x7b", "rwkv6-3b", "zamba2-1.2b"):
     m.decode(p, torch.zeros((1, 1), dtype=torch.int64), cache, 4)
 runpy.run_path({str(Path(SRC).parent / "examples" / "torch_serve_retrieval.py")!r})
 from repro_torch.serving import make_serve_fns, ServeConfig
+# training: the token pipeline, AdamW, compression, checkpoints, the step,
+# the launcher and the example
+import repro_torch.data, repro_torch.training, repro_torch.training.compression
+import repro_torch.launch.train
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.iceberg.catalog import RestCatalog
+from repro_torch.lakehouse.objectstore import ObjectStore
+from repro_torch.training import CheckpointManager, TrainStepConfig, make_train_step
+from repro_torch.training.train_loop import init_train_state
+m = build_model(reduced(get_config("qwen2.5-3b")), device="cpu")
+step, _ = make_train_step(m, TrainStepConfig(microbatches=2), device="cpu")
+p, o = init_train_state(m, torch.Generator().manual_seed(0))
+p, o, met = step(p, o, *SyntheticTokens(vocab_size=512, seq_len=8, batch_size=2).batch(0))
+mgr = CheckpointManager(RestCatalog(ObjectStore({str(tmp_path / "ckpt")!r})))
+mgr.save(0, {{"params": p, "opt": o}})
+assert mgr.restore({{"params": p, "opt": o}})[1] == 0
+runpy.run_path({str(Path(SRC).parent / "examples" / "torch_train_checkpointed.py")!r})
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 """
@@ -182,16 +201,29 @@ print("LOADED", bad)
     assert "LOADED []" in out.stdout
 
 
-@pytest.mark.parametrize("entry", ["cluster", "executor", "graph", "kmeans"])
+@pytest.mark.parametrize("entry", ["cluster", "executor", "graph", "kmeans", "train_step",
+                                   "train_state", "train_launcher", "train_example"])
 def test_entry_points_refuse_missing_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
+    import runpy
+
+    from repro_torch.configs import get_config, reduced
     from repro_torch.core.kmeans import train_kmeans
     from repro_torch.core.vamana import VamanaGraph, VamanaParams
     from repro_torch.lakehouse.objectstore import ObjectStore
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.model import build_model
     from repro_torch.runtime.executor import Executor
+    from repro_torch.training.train_loop import init_train_state, make_train_step
 
+    cfg = reduced(get_config("qwen2.5-3b"))
+    example = str(Path(SRC).parent / "examples" / "torch_train_checkpointed.py")
     calls = {
+        "train_step": lambda: make_train_step(build_model(cfg, device="cpu")),
+        "train_state": lambda: init_train_state(build_model(cfg), torch.Generator()),
+        "train_launcher": lambda: train_launcher.main(["--arch", "qwen2.5-3b", "--steps", "1"]),
+        "train_example": lambda: runpy.run_path(example)["main"](),
         "cluster": lambda: port_cluster(str(tmp_path)),
         "executor": lambda: Executor("ex", ObjectStore(str(tmp_path / "s3")), str(tmp_path / "c")),
         "graph": lambda: VamanaGraph(np.zeros((4, 2), np.float32), np.zeros((4, 2), np.int32),
