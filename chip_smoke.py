@@ -33,11 +33,11 @@ no result line):
    ``brute_force_topk`` must reach 0.90.
 4. Filtered probes on that index: ``price < 4`` (ExactScan after
    resolution), ``price < 200`` (MaskedBeam) and ``price < 9000``
-   (PostfilterBeam), 10 ``probe`` calls of 100 queries each, then 10
+   (PostfilterBeam), 5 ``probe`` calls of 100 queries each, then 5
    ``probe_batch`` calls mixing 10 distinct predicates; recall@10 against
    the plain masked op on the card: 0.99 on ExactScan rows, 0.90 on the
    beam bands.
-5. The fresh tail: 65,536 rows appended without a refresh, 10 unfiltered
+5. The fresh tail: 65,536 rows appended without a refresh, 5 unfiltered
    ``probe`` calls and a heterogeneous filtered ``probe_batch``; every true
    neighbour that lies in the tail must be returned.
 6. A small-shard catalog (131,072 x 128, 32 shards of 4,096 rows, PQ
@@ -46,7 +46,7 @@ no result line):
 7. Quantized ExactScans on the phase-6 catalog (before any refresh): a
    ``price < 900`` probe (9 %: ExactScan on every 4,096-row shard, where
    the planner gives ExactScan its scan dtype) and batches of ten distinct
-   ``price < 90..900`` predicates, 10 calls of 100 queries each, with
+   ``price < 90..900`` predicates, 5 calls of 100 queries each, with
    ``scan_dtype`` bf16 and int8 (the bf16 / int8 scan at
    ``quant_guard_pool(k)``, then the full-precision ``gather_rerank``
    guard); recall@10 against the plain f32 masked op of 0.99.
@@ -55,7 +55,7 @@ no result line):
    ``compact_tail`` folds the 65,536 tail rows into the shards through
    ``refresh_index`` (tombstones plus ``insert_batch``); no deleted row
    may come back, the counts must equal the rows deleted and appended, and
-   10 unfiltered probe calls must reach recall@10 0.90 over the live rows.
+   5 unfiltered probe calls must reach recall@10 0.90 over the live rows.
 9. The serving tier.  (a) The phase-3 snapshot, opened by its id, its four
    shard graphs decoded from the Puffin file into a ``DeviceAnnIndex``
    (payload: global row numbers) and probed by ``make_probe_fn`` (k = 10,
@@ -140,6 +140,34 @@ no result line):
    then ``python -m repro_torch.launch.train`` twice on one warehouse (the
    second resumes from the committed step 10); run before (b), away from
    its 40.8 GB of disk writes.  No ANN kernel runs here.
+14. Sharding and the dry-runs (``models/sharding.py``, ``launch/mesh.py``,
+   the mesh forms of ``make_probe_fn`` / ``make_serve_fns`` /
+   ``make_train_step``, ``launch/{dryrun,probe_dryrun}.py``).  (a) Right
+   after 11a, on its model, weights, index and 8 requests: both serving
+   runs again through ``make_serve_fns(model, make_debug_mesh(1, 1),
+   SERVE_RULES, ...)`` with ``make_probe_fn(mesh, k=8, L=32)`` fused; the
+   prefill and every decode step's logits, with and without retrieval,
+   bit for bit 11a's (a one-rank mesh replicates everything and runs the
+   same ops on the same local tensors); decode ms/step beside 11a's and
+   the step's roofline bound from ``analysis/roofline.py``.  (b) Inside
+   13b: the resume from the step-9 checkpoint restores into
+   ``init_train_state(model, make_debug_mesh(1, 1), DEFAULT_RULES)``'s
+   placed state and runs step 10 through ``make_train_step(model, mesh,
+   DEFAULT_RULES, cfg)``: its loss bit for bit the first run's.  (c)
+   ``python -m repro_torch.launch.probe_dryrun`` as a process (the paper's
+   10^9-vector probe traced on the (16, 16) and (2, 16, 16) meshes over a
+   fake group), then one device's share of that row on the card: a
+   4,194,304 x 768 bf16 shard with a seeded random 64-out-neighbour int64
+   adjacency, probed by 64 queries at k = 100, L = 100, oversample 2
+   through ``make_probe_fn(make_debug_mesh(1, 1), ...)``; the memory it
+   holds beside the row's ``hbm_per_chip_gb``, the probe's peak above its
+   arguments (the counterpart of the reference's ``temp_bytes``) and its
+   time beside the row's per-device ``t_memory`` / ``t_compute``; recall is
+   not measured (the graph is random).  (d) ``python -m
+   repro_torch.launch.dryrun --arch qwen2.5-3b --shape decode_32k`` and
+   ``prefill_32k`` on the single-pod mesh as processes: rc 0, a row that is
+   not an error.  The three dry-run processes use no card: they start
+   before phase 3 and run beside it, and (c) and (d) read their rows.
 
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
@@ -199,12 +227,13 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, dense bf16 and int8 on the tensor cores, and HBM3 bandwidth
-PEAK_F32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
-PEAK_BYTES = 3.35e12
+# H100 SXM published peaks (NVIDIA data sheet), kept in one place: f32
+# outside the tensor cores, dense bf16 and int8 on the tensor cores, and
+# HBM3 bandwidth
+from repro_torch.analysis.roofline import HBM_BW as PEAK_BYTES  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS as PEAK_BF16  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS_F32 as PEAK_F32  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS_INT8 as PEAK_INT8  # noqa: E402
 
 MASKED_CU = "src/repro_torch/kernels/csrc/masked_topk.cu"
 MASKED_PY = "src/repro/kernels/masked_topk.py"
@@ -372,6 +401,10 @@ def phase_environment(torch):
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    # the dry-runs' fake process group (phase 14) rests on this private module
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    log(f"fake process group store imports: {FakeStore.__module__}.{FakeStore.__name__}")
     from repro_torch.kernels import _build
 
     t0 = time.time()
@@ -2895,16 +2928,24 @@ def _hit_rows(files, report) -> np.ndarray:
                      + [-1] * (LM_K - len(hs)) for hs in report.hits], np.int64)
 
 
-def _serve(torch, model, params, prompts, retrieval=None, index=None, record=None):
+def _whole(t):
+    """A DTensor's whole value (a one-rank mesh's local tensor), else ``t``."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _serve(torch, model, params, prompts, retrieval=None, index=None, mesh=None):
     """Prefill ``prompts`` and decode LM_GEN greedy steps through
-    ``make_serve_fns``; returns (timings, prefill logits, each step's
-    logits, each step's input tokens, a copy of the first step's cache and
-    token)."""
+    ``make_serve_fns`` (on ``mesh`` with ``SERVE_RULES`` when given);
+    returns (timings, prefill logits, each step's logits, each step's input
+    tokens, a copy of the first step's cache and token), whole tensors."""
+    from repro_torch.launch.specs import SERVE_RULES
     from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
 
-    prefill, decode, sample = make_serve_fns(
-        model, cfg=ServeConfig(knn_lambda=LM_LAMBDA if retrieval else 0.0),
-        retrieval=retrieval, device=model.device)
+    prefill, decode, sample, _ = make_serve_fns(
+        model, mesh, SERVE_RULES if mesh is not None else None,
+        cfg=ServeConfig(knn_lambda=LM_LAMBDA if retrieval else 0.0),
+        retrieval=retrieval, index_template=index if retrieval else None,
+        batch_hint=LM_BATCH, max_len_hint=LM_PROMPT + LM_GEN, device=model.device)
     cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2912,19 +2953,19 @@ def _serve(torch, model, params, prompts, retrieval=None, index=None, record=Non
     tok = sample(logits_p)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    first = dict(cache={k: v.clone() for k, v in cache.items()}, tok=tok.clone())
+    first = dict(cache={k: _whole(v).clone() for k, v in cache.items()}, tok=tok.clone())
     steps, fed = [], []
     t0 = time.perf_counter()
     for t in range(LM_PROMPT, LM_PROMPT + LM_GEN):
         fed.append(tok)
         logits, cache = decode(params, tok, cache, t, index)
-        steps.append(logits)
+        steps.append(_whole(logits))
         tok = sample(logits)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     times = dict(prefill_ms=prefill_s * 1e3, prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_s,
                  decode_ms_step=decode_s / LM_GEN * 1e3, decode_tok_s=LM_BATCH * LM_GEN / decode_s)
-    return times, logits_p, steps, fed, first
+    return times, _whole(logits_p), steps, fed, first
 
 
 def decode_profile(torch, step, n_steps: int = 2):
@@ -3037,7 +3078,7 @@ def phase_lm_serving(torch, dev, seed: int, workdir: str):
         prompts = torch.from_numpy(rng.integers(0, V, size=(LM_BATCH, LM_PROMPT))).to(dev)
         # warm-up, untimed: cuBLAS handles, the allocator, the probe's beam
         # runners for the decode's query shape (their CUDA graphs)
-        prefill_w, decode_w, sample_w = make_serve_fns(model, device=dev)
+        prefill_w, decode_w, sample_w, _ = make_serve_fns(model, device=dev)
         cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
         logits, cache = prefill_w(params, prompts, cache)
         for t in range(LM_PROMPT, LM_PROMPT + 2):
@@ -3050,9 +3091,13 @@ def phase_lm_serving(torch, dev, seed: int, workdir: str):
                 f"({tm['prefill_tok_s']:.1f} tok/s); decode {tm['decode_ms_step']:.3f} ms/step "
                 f"({tm['decode_tok_s']:.1f} tok/s, batch {LM_BATCH}); bound {bound_ms:.3f} ms/step")
         facts.update(plain=plain, knn=knn, bound_ms=bound_ms, params=n_params, d=d)
+        # what phase 14a serves again on a one-rank mesh
+        facts["for_14a"] = dict(model=model, params=params, prompts=prompts, index=index,
+                                logits={"plain": (lp, steps), "knn": (_lp, knn_steps)},
+                                times={"plain": plain, "knn": knn}, param_bytes=param_bytes)
         # where a step's time goes: device events against the host's clock
         for what, tm, ret in (("decode", plain, None), ("decode + kNN-LM probe", knn, probe)):
-            prefill_p, decode_p, sample_p = make_serve_fns(
+            prefill_p, decode_p, sample_p, _ = make_serve_fns(
                 model, cfg=ServeConfig(knn_lambda=LM_LAMBDA if ret else 0.0), retrieval=ret,
                 device=dev)
             cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
@@ -3086,7 +3131,7 @@ def phase_lm_serving(torch, dev, seed: int, workdir: str):
 
         # check 2: retrieval changes the logits (lambda 0.3 against 0 from the
         # same cache and token)
-        _prefill, decode0, _ = make_serve_fns(model, cfg=ServeConfig(knn_lambda=0.0),
+        _prefill, decode0, _, _ = make_serve_fns(model, cfg=ServeConfig(knn_lambda=0.0),
                                               retrieval=probe, device=dev)
         l0, _ = decode0(params, first["tok"], first["cache"], LM_PROMPT, index)
         mixed = knn_steps[0]
@@ -3346,7 +3391,7 @@ def _serve_family(torch, dev, seed: int, workdir: str, arch: str, layers):
 
     # -- serve both ways --------------------------------------------------------
     prompts = torch.from_numpy(rng.integers(0, V, size=(LM_BATCH, LM_PROMPT))).to(dev)
-    prefill_w, decode_w, sample_w = make_serve_fns(model, device=dev)  # warm-up, untimed
+    prefill_w, decode_w, sample_w, _ = make_serve_fns(model, device=dev)  # warm-up, untimed
     cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
     logits, cache = prefill_w(params, prompts, cache)
     for t in range(LM_PROMPT, LM_PROMPT + 2):
@@ -3407,7 +3452,7 @@ def _serve_family(torch, dev, seed: int, workdir: str, arch: str, layers):
 
     # check 2: retrieval changes the logits (lambda 0.3 against 0 from the
     # same cache and token)
-    _prefill, decode0, _ = make_serve_fns(model, cfg=ServeConfig(knn_lambda=0.0), retrieval=probe,
+    _prefill, decode0, _, _ = make_serve_fns(model, cfg=ServeConfig(knn_lambda=0.0), retrieval=probe,
                                           device=dev)
     l0, _ = decode0(params, first["tok"], first["cache"], LM_PROMPT, index)
     mixed = knn_steps[0]
@@ -3562,10 +3607,10 @@ def phase_train_parity(torch, dev, seed: int):
                                           batch_size=TRAIN_BATCH, num_codebooks=cfg.num_codebooks,
                                           seed=seed).batch(0)
             seen.clear()
-            p_card, o_card, m_card = make_train_step(card_model, tc, device=dev)[0](
+            p_card, o_card, m_card = make_train_step(card_model, None, cfg=tc, device=dev)[0](
                 p_card, o_card, ids, labels)
             torch.cuda.synchronize()
-            p_cpu, o_cpu, m_cpu = make_train_step(cpu_model, tc, device="cpu")[0](
+            p_cpu, o_cpu, m_cpu = make_train_step(cpu_model, None, cfg=tc, device="cpu")[0](
                 p_cpu, o_cpu, ids, labels)
             g_card, g_cpu = seen
             given_p, given_o, _ = adamw_update(
@@ -3633,10 +3678,11 @@ def phase_train_full(torch, dev, seed: int, workdir: str, smi: str):
     from repro_torch.iceberg.catalog import RestCatalog
     from repro_torch.kernels import _build
     from repro_torch.lakehouse.objectstore import ObjectStore
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.train import check_fits
-    from repro_torch.models.model import build_model, param_shapes
+    from repro_torch.models.model import build_model
+    from repro_torch.models.sharding import DEFAULT_RULES, local_tree
     from repro_torch.training.checkpoint import CheckpointManager
-    from repro_torch.training.optimizer import AdamWState, tree_map
     from repro_torch.training.train_loop import init_train_state, make_train_step
 
     cfg = get_config(TRAIN_ARCH)
@@ -3655,8 +3701,8 @@ def phase_train_full(torch, dev, seed: int, workdir: str, smi: str):
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    params, opt = init_train_state(model, torch.Generator(device=dev).manual_seed(seed))
-    step, _ = make_train_step(model, _train_cfg(), device=dev)
+    params, opt = init_train_state(model, seed=seed)
+    step, _ = make_train_step(model, None, cfg=_train_cfg(), device=dev)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=7)
@@ -3716,20 +3762,26 @@ def phase_train_full(torch, dev, seed: int, workdir: str, smi: str):
         del params, opt, m
         torch.cuda.empty_cache()
         held_after_drop = torch.cuda.memory_allocated()
-        like = {"params": tree_map(lambda t: torch.empty(t.shape, device=dev), param_shapes(model))}
-        like["opt"] = AdamWState(tree_map(lambda t: torch.empty(t.shape, device=dev), like["params"]),
-                                 tree_map(lambda t: torch.empty(t.shape, device=dev), like["params"]),
-                                 torch.zeros((), dtype=torch.int32, device=dev))
+        # 14b: the resume runs on a one-rank mesh, into the state placed by
+        # init_train_state's shardings, through the mesh form of the step
+        t14 = time.perf_counter()
+        mesh = make_debug_mesh(1, 1, device=dev)
+        step_mesh, _sh = make_train_step(model, mesh, DEFAULT_RULES, cfg=_train_cfg(), device=dev)
+        like = dict(zip(("params", "opt"), init_train_state(model, mesh, DEFAULT_RULES, seed=seed)))
+        placements = {str(p) for t in (like["params"]["embed"], like["opt"].m["embed"])
+                      for p in t.placements}
         t = time.perf_counter()
         latest = mgr.latest_step()
         restored, at = mgr.restore(like)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t
-        got = _bit_sums(torch, restored)
+        got = _bit_sums(torch, local_tree(restored))
         differ = [k for k in sums if not torch.equal(sums[k], got[k])]
         ids, labels = data.batch((TRAIN_SAVE_AT + 1) % 2)
-        _p, _o, m10 = step(restored["params"], restored["opt"], ids, labels)
+        _p, _o, m10 = step_mesh(restored["params"], restored["opt"], ids, labels)
         resumed_loss = float(m10["loss"])
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t14
         del restored, like, _p, _o
     finally:
         store.put, mgr.catalog.commit_with_retries = put, commit
@@ -3743,7 +3795,7 @@ def phase_train_full(torch, dev, seed: int, workdir: str, smi: str):
     facts = dict(params=n, losses=losses, step_ms=step_ms, median_ms=med, tok_s=tokens / med * 1e3,
                  flop_bound_ms=flop_ms, opt_bound_ms=opt_ms, events_step=per_step, busy_ms=busy,
                  peak_gb=peak / 1e9, init_s=init_s, save=save, restore_s=restore_s,
-                 latest=latest, resumed_loss=resumed_loss)
+                 latest=latest, resumed_loss=resumed_loss, mesh_resume_s=mesh_s)
     log(f"phase 13b [{smi}] losses {[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in step_ms]}")
     log(f"phase 13b step {med:.2f} ms (median of steps 2-{TRAIN_STEPS - 1}), {tokens / med * 1e3:.1f} tok/s; "
         f"bounds {flop_ms:.1f} ms (FLOPs) and {opt_ms:.1f} ms (optimizer bytes); "
@@ -3756,15 +3808,19 @@ def phase_train_full(torch, dev, seed: int, workdir: str, smi: str):
         f"{save['thread_s']:.2f} s (puts {save['put_s']:.2f} s, commit {save['commit_s']:.3f} s), the "
         f"wait after step {TRAIN_STEPS - 1} {wait_s:.2f} s; device memory after the drop "
         f"{held_after_drop / 1e9:.2f} GB; restore {restore_s:.2f} s (latest step {latest}); "
-        f"leaves with other bits {differ}; step {TRAIN_SAVE_AT + 1} again: loss {resumed_loss:.6f} "
-        f"(first run {losses[TRAIN_SAVE_AT + 1]:.6f}); launches {launches}")
+        f"leaves with other bits {differ}; launches {launches}")
+    log(f"phase 14b resume on a one-rank mesh (placements {sorted(placements)}): init_train_state's "
+        f"placed state restored in {restore_s:.2f} s, step {TRAIN_SAVE_AT + 1} through the mesh step: "
+        f"loss {resumed_loss!r} (first run {losses[TRAIN_SAVE_AT + 1]!r}, bit for bit: "
+        f"{resumed_loss == losses[TRAIN_SAVE_AT + 1]}); {mesh_s:.2f} s with the mesh, the state's "
+        f"init and the restore")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.5:
         raise AssertionError(f"phase 13b: the loss did not fall by 0.5: {losses}")
     if latest != TRAIN_SAVE_AT or at != TRAIN_SAVE_AT or differ:
         raise AssertionError(f"phase 13b: restored step {latest}/{at}, leaves differing {differ}")
-    if abs(resumed_loss - losses[TRAIN_SAVE_AT + 1]) > 1e-4:
-        raise AssertionError(f"phase 13b: resumed step {TRAIN_SAVE_AT + 1} loss {resumed_loss} != "
-                             f"{losses[TRAIN_SAVE_AT + 1]}")
+    if resumed_loss != losses[TRAIN_SAVE_AT + 1]:
+        raise AssertionError(f"phase 14b: resumed step {TRAIN_SAVE_AT + 1} loss {resumed_loss!r} on "
+                             f"the mesh != the first run's {losses[TRAIN_SAVE_AT + 1]!r}")
     if any(launches.values()):
         raise AssertionError(f"phase 13b: the training path launched ANN kernels {launches}")
     return launches, facts
@@ -3832,12 +3888,222 @@ def phase_train_launcher(workdir: str):
     return dict(seconds=[s for s, _ in out])
 
 
+# -- phase 14 ---------------------------------------------------------------------
+
+PROBE_SHARD_REPS = 5  # timed probes of 14c's shard, after one untimed
+
+
+def phase_mesh_serving(torch, dev, keep: dict, smi: str):
+    """14a: 11a's two serving runs again on a one-rank mesh (``SERVE_RULES``,
+    the mesh probe fused): every logit bit for bit 11a's.  Returns facts."""
+    from repro_torch.analysis.roofline import compute_roofline
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import SERVE_RULES
+    from repro_torch.models.model import cache_shapes
+    from repro_torch.serving.device_index import make_probe_fn
+    from repro_torch.serving.serve_loop import make_serve_fns
+
+    model, params, prompts, index = keep["model"], keep["params"], keep["prompts"], keep["index"]
+    t_phase = time.time()
+    mesh = make_debug_mesh(1, 1, device=dev)
+    probe = make_probe_fn(mesh, k=LM_K, L=LM_L, device=dev)
+    by_dim: dict = {}
+    tally, restore = _hold_ops_to_plain(torch, by_dim)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    try:
+        # warm-up, untimed: DTensor's sharding propagation for each op, the
+        # placed index's beam runners
+        prefill_w, decode_w, sample_w, _ = make_serve_fns(
+            model, mesh, SERVE_RULES, batch_hint=LM_BATCH, max_len_hint=LM_PROMPT + LM_GEN,
+            device=dev)
+        cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
+        logits, cache = prefill_w(params, prompts, cache)
+        for t in range(LM_PROMPT, LM_PROMPT + 2):
+            logits, cache = decode_w(params, sample_w(logits), cache, t)
+        probe(index, torch.zeros((LM_BATCH, model.cfg.d_model), device=dev))
+        placements = sorted({str(p) for leaf in (cache["k"], logits) for p in leaf.placements})
+        del prefill_w, decode_w, sample_w, cache, logits
+        runs = {"plain": _serve(torch, model, params, prompts, mesh=mesh),
+                "knn": _serve(torch, model, params, prompts, probe, index, mesh=mesh)}
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    differ = {}
+    for what, (times, lp, steps, _fed, _first) in runs.items():
+        want_lp, want_steps = keep["logits"][what]
+        differ[what] = [i for i, (a, b) in enumerate(zip([lp] + steps, [want_lp] + want_steps))
+                        if not torch.equal(a, b)]
+    cfg = model.cfg
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in cache_shapes(model, LM_BATCH, LM_PROMPT + LM_GEN).values())
+    flops = 2.0 * model.param_count() * LM_BATCH
+    terms = compute_roofline(arch=cfg.name, shape="decode", mesh="1x1", chips=1, hlo_flops_raw=flops,
+                             hlo_bytes_raw=0.0, jaxpr_flops=flops,
+                             model_bytes=keep["param_bytes"] + cache_bytes, coll_bytes_raw=0.0,
+                             coll_bytes=0.0, model_flops=flops)
+    bound_ms = max(terms.t_compute, terms.t_memory) * 1e3
+    for what in runs:
+        mesh_t, plain_t = runs[what][0], keep["times"][what]
+        log(f"phase 14a {what:5s} [{smi}]: prefill {mesh_t['prefill_ms']:.2f} ms (11a "
+            f"{plain_t['prefill_ms']:.2f}); decode {mesh_t['decode_ms_step']:.3f} ms/step on the mesh, "
+            f"{plain_t['decode_ms_step']:.3f} in 11a; the step's roofline bound {bound_ms:.3f} ms "
+            f"({terms.bottleneck}: t_memory {terms.t_memory * 1e3:.3f} ms for the bf16 weights and the "
+            f"cache, t_compute {terms.t_compute * 1e3:.4f} ms)")
+    log(f"phase 14a: placements {placements}; logits differing from 11a (prefill = 0, step t = t + 1): "
+        f"{differ}; {time.time() - t_phase:.2f} s; launches {launches}; held calls "
+        f"{ {k: n for k, (n, _e) in tally.items()} }")
+    if any(differ.values()):
+        raise AssertionError(f"phase 14a: the mesh's logits differ from 11a's: {differ}")
+    return dict(seconds=time.time() - t_phase, bound_ms=bound_ms,
+                decode_ms_step={k: v[0]["decode_ms_step"] for k, v in runs.items()})
+
+
+def _start_dry_run(args, out: str):
+    """One dry-run launcher started as a process of its own (its fake group
+    cannot share this process with the card's; it uses no card, so it runs
+    beside the phases that do): ``(command, process, start, out)``."""
+    import os
+
+    cmd = [sys.executable, "-m", *args, "--out", out]
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"), OMP_NUM_THREADS="1")
+    with open(out + ".log", "w") as logf:  # the child keeps its own descriptor
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, cwd=str(HERE), env=env)
+    return cmd, proc, time.time(), out
+
+
+def _dry_run_rows(started, timeout: int = 300) -> list:
+    """The rows of a dry-run process of :func:`_start_dry_run`, once it has
+    exited 0."""
+    cmd, proc, t0, out = started
+    rc = proc.wait(timeout=timeout)
+    log(f"phase 14 {' '.join(cmd[2:-2])}: rc {rc}, collected {time.time() - t0:.2f} s after its start "
+        f"before phase 3")
+    if rc != 0:
+        with open(out + ".log") as f:
+            raise AssertionError(f"{' '.join(cmd[2:])}: rc {rc}, output {f.read()[-3000:]}")
+    with open(out) as f:
+        return [json.loads(line) for line in f]
+
+
+DRY_RUN_SHAPES = ("decode_32k", "prefill_32k")  # 14d's cells of LM_ARCH, single-pod mesh
+
+
+def start_dry_runs(workdir: str) -> dict:
+    """14c's and 14d's dry-run processes, started together."""
+    runs = {"probe": _start_dry_run(["repro_torch.launch.probe_dryrun"],
+                                    str(Path(workdir) / "probe_dryrun.jsonl"))}
+    for shape in DRY_RUN_SHAPES:
+        runs[shape] = _start_dry_run(["repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
+                                      shape, "--mesh", "single"],
+                                     str(Path(workdir) / f"dryrun_{shape}.jsonl"))
+    return runs
+
+
+def phase_probe_share(torch, dev, seed: int, dry_runs: dict, smi: str):
+    """14c: the paper's 10^9-vector probe dry-run as a process, then one
+    device's share of its single-pod row allocated and probed on the card."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serving.device_index import DeviceAnnIndex, make_probe_fn
+
+    t_phase = time.time()
+    rows = {r["mesh"]: r for r in _dry_run_rows(dry_runs["probe"])}
+    if sorted(rows) != ["multi", "single"]:
+        raise AssertionError(f"probe_dryrun rows: {sorted(rows)}")
+    for name, r in rows.items():
+        rf = r["roofline"]
+        log(f"phase 14c probe_dryrun {name} ({r['chips']} devices, {rf['devices_dividing']} holding "
+            f"distinct shards): index {r['index']}; per probe step and device t_compute (f32 peak) "
+            f"{rf['t_compute']:.3e} s, t_memory {rf['t_memory']:.3e} s, t_collective "
+            f"{rf['t_collective']:.3e} s, bottleneck {rf['bottleneck']}; collectives "
+            f"{r['collectives']['by_kind']}")
+    row = rows["single"]
+    ix = row["index"]
+    cap, D, R, K, L, Q = ix["cap"], ix["D"], ix["R"], ix["K"], ix["L"], ix["Q"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    index = DeviceAnnIndex(
+        vectors=torch.randn((1, cap, D), generator=gen, device=dev, dtype=torch.bfloat16),
+        # a random graph of R out-neighbours a node, uniform over the shard
+        adjacency=torch.randint(0, cap, (1, cap, R), generator=gen, device=dev, dtype=torch.int64),
+        medoids=torch.zeros((1,), dtype=torch.int64, device=dev),
+        counts=torch.full((1,), cap, dtype=torch.int64, device=dev),
+        payload=torch.arange(cap, dtype=torch.int64, device=dev)[None],
+    )
+    queries = torch.randn((Q, D), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    mesh = make_debug_mesh(1, 1, device=dev)
+    probe = make_probe_fn(mesh, k=K, L=L, metric="l2", oversample=ix["oversample"],
+                          shard_axes=("data", "model"), device=dev)
+    times, temps = [], []
+    for rep in range(PROBE_SHARD_REPS + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        d, p = probe(index, queries)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        temps.append(torch.cuda.max_memory_allocated() - before)
+    d, p = d.to_local(), p.to_local()
+    ok = (tuple(d.shape) == (Q, K) and bool(torch.isfinite(d).all())
+          and bool((d[:, 1:] >= d[:, :-1]).all()) and bool(((p >= 0) & (p < cap)).all()))
+    step_ms = float(np.median(times[1:]))
+    rf = row["roofline"]
+    f32_copy = 4 * cap * D
+    log(f"phase 14c one device's share [{smi}]: {cap:,} x {D} bf16 vectors, {cap:,} x {R} int64 "
+        f"adjacency, int64 payload: {held / 1e9:.3f} GB held on the card (torch.cuda.memory_allocated), "
+        f"the dry-run row's hbm_per_chip_gb {ix['hbm_per_chip_gb']}")
+    log(f"phase 14c probe of {Q} queries, k {K}, L {L}, oversample {ix['oversample']}: "
+        f"{step_ms:.3f} ms (median of {PROBE_SHARD_REPS}; first call {times[0]:.1f} ms with the beam's "
+        f"graph capture) against the row's per-device t_memory {rf['t_memory'] * 1e3:.4f} ms and "
+        f"t_compute {rf['t_compute'] * 1e3:.5f} ms; peak above its arguments {max(temps[1:]) / 1e6:.2f} MB "
+        f"(first call {temps[0] / 1e6:.2f} MB; a whole-shard f32 cast would be {f32_copy / 1e9:.1f} GB); "
+        f"answers of shape {tuple(d.shape)}, finite, ascending, payloads in range: {ok}; recall not "
+        f"measured: the graph is random")
+    if not ok:
+        raise AssertionError(f"phase 14c: the shard's probe answers are malformed: {d.shape}, {p.shape}")
+    if max(temps) >= f32_copy / 2:
+        raise AssertionError(f"phase 14c: the probe's peak {max(temps)} bytes is an f32 copy of the shard")
+    del index, queries, d, p
+    torch.cuda.empty_cache()
+    return dict(seconds=time.time() - t_phase, held_gb=held / 1e9, probe_ms=step_ms,
+                temp_mb=max(temps[1:]) / 1e6, row=row)
+
+
+def phase_lm_dry_runs(dry_runs: dict):
+    """14d: the LM dry-run of qwen2.5-3b's decode_32k and prefill_32k cells
+    on the single-pod mesh, each as a process."""
+    t_phase = time.time()
+    rows = []
+    for shape in DRY_RUN_SHAPES:
+        got = _dry_run_rows(dry_runs[shape])
+        if len(got) != 1 or got[0]["kind"] in ("error", "skip"):
+            raise AssertionError(f"dryrun {shape}: {got}")
+        r = got[0]
+        rf, co = r["roofline"], r["collectives"]
+        log(f"phase 14d dryrun {LM_ARCH} {shape} single ({r['chips']} devices, traced at depths "
+            f"{r['traced_depths']} in {r['lower_s']} s): jaxpr_flops (traced) {rf['jaxpr_flops']:.4e} "
+            f"(matmuls {r['cost_analysis']['dot_flops']:.4e}), model_flops {rf['model_flops']:.4e}, "
+            f"useful_ratio {rf['useful_ratio']:.4f}; collectives {co['global_bytes']:.4e} B global "
+            f"({co['by_kind']}); args {r['memory_analysis']['argument_bytes'] / 1e9:.3f} GB a device; "
+            f"t_compute {rf['t_compute']:.3e} s, t_memory {rf['t_memory']:.3e} s, t_collective "
+            f"{rf['t_collective']:.3e} s: bottleneck {rf['bottleneck']}")
+        rows.append(r)
+    return dict(seconds=time.time() - t_phase, rows=rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--filtered-calls", type=int, default=10,
+    ap.add_argument("--filtered-calls", type=int, default=5,
                     help="probe calls of 100 queries per filtered row (phases 4, 5, 7 and 8)")
     ap.add_argument("--small-n", type=int, default=131_072,
                     help="rows of the small-shard catalog of phase 6")
@@ -3884,7 +4150,9 @@ def main() -> int:
         log("--only-kernels: phases 1-2 passed; the main path did not run")
         return 0
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    dry_runs = {}
     try:
+        dry_runs = start_dry_runs(workdir)
         launches, main, ctx = timed(
             "3 main path", phase_main_path, torch, args.n, args.queries, args.seed, workdir
         )
@@ -3904,8 +4172,11 @@ def main() -> int:
         per_phase["9"] = got
         got, _stats = timed("10 examples", phase_examples, torch)
         per_phase["10"] = got
-        got, _facts = timed("11a LM serving", phase_lm_serving, torch, dev, args.seed, workdir)
+        got, facts11 = timed("11a LM serving", phase_lm_serving, torch, dev, args.seed, workdir)
         per_phase["11a"] = got
+        timed("14a mesh serving", phase_mesh_serving, torch, dev, facts11.pop("for_14a"), smi)
+        del facts11
+        torch.cuda.empty_cache()
         got, _facts = timed("11b serve_retrieval example", phase_lm_example, torch)
         per_phase["11b"] = got
         timed("11c serve launcher", phase_lm_launcher)
@@ -3918,8 +4189,17 @@ def main() -> int:
         timed("13c train launcher", phase_train_launcher, workdir)
         got, _facts = timed("13b train qwen2.5-3b", phase_train_full, torch, dev, args.seed, workdir, smi)
         per_phase["13b"] = got
+        timed("14c probe share", phase_probe_share, torch, dev, args.seed, dry_runs, smi)
+        timed("14d LM dry-runs", phase_lm_dry_runs, dry_runs)
     finally:
+        for _cmd, proc, _t0, _out in dry_runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(workdir, ignore_errors=True)
+        from repro_torch.launch.mesh import destroy
+
+        destroy()  # the one-rank group of phase 14
     launches = {k: sum(p.get(k, 0) for p in per_phase.values()) for k in KERNELS}
     if shadow is not None:
         log(f"parent vs change on phases 3-9, every call also run on the parent's build: "

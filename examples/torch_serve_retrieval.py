@@ -95,7 +95,7 @@ def main(device="cuda") -> dict:
 
     def run(retrieval, label):
         serve_cfg = ServeConfig(knn_lambda=0.3 if retrieval else 0.0)
-        prefill, decode, sample = make_serve_fns(
+        prefill, decode, sample, _ = make_serve_fns(
             model, cfg=serve_cfg, retrieval=probe if retrieval else None, device=dev,
         )
         cache = model.init_cache(B, prompt_len + gen_len)

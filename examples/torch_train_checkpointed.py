@@ -44,7 +44,8 @@ def main(device="cuda", steps: int = 30, layers: int = 4, d_model: int = 256) ->
         num_heads=8, num_kv_heads=2, head_dim=d_model // 8, vocab_size=2048,
     )
     model = build_model(cfg, device=dev)
-    step, _ = make_train_step(model, TrainStepConfig(microbatches=2, lr=1e-3, remat=True), device=dev)
+    step, _ = make_train_step(model, None, cfg=TrainStepConfig(microbatches=2, lr=1e-3, remat=True),
+                              device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt = adamw_init(params)
     print(f"model: {model.param_count(params)/1e6:.1f}M params "

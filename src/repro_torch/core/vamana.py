@@ -213,6 +213,17 @@ class _Beam:
         slots: id == cap, dist == +inf."""
         self.q.copy_(queries)
         self._reset()
+        self._search()
+        return (
+            self.keys >> 1,
+            self.dists.clone(),
+            self.vis_ids.clone(),
+            self.vis_dists.clone(),
+        )
+
+    def _search(self) -> None:
+        """Steps until no row has a frontier left or ``max_iters`` are
+        taken, testing the frontier every ``FRONTIER_CHECK_EVERY`` steps."""
         it = 0
         while it < self.max_iters:
             if not bool(torch.isfinite(self._frontier()).any()):
@@ -224,12 +235,6 @@ class _Beam:
                 for _ in range(chunk):
                     self._step()
             it += chunk
-        return (
-            self.keys >> 1,
-            self.dists.clone(),
-            self.vis_ids.clone(),
-            self.vis_dists.clone(),
-        )
 
 
 class _MaskedBeam(_Beam):

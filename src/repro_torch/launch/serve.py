@@ -3,13 +3,16 @@
     python -m repro_torch.launch.serve --arch chatglm3-6b --reduced \
         --batch 4 --prompt 32 --gen 32 [--retrieval] [--device cpu]
 
-Port of ``repro/launch/serve.py`` on one card, with the same flags plus
-``--device`` (CUDA by default; raises without a card).  ``--retrieval``
-builds a small Vamana corpus index on the fly and fuses the kNN-LM probe
-into every decode step (the paper's index as a serving feature).  Reduced
-configs run anywhere; ``--full`` serves the published config when its
-parameters, stored in bf16, fit the card's memory, and raises otherwise
-(a model larger than one card waits for ``models/sharding.py``).
+Port of ``repro/launch/serve.py``, with the same flags plus ``--device``
+(CUDA by default; raises without a card).  ``--retrieval`` builds a small
+Vamana corpus index on the fly and fuses the kNN-LM probe into every
+decode step (the paper's index as a serving feature).  The mesh is the
+reference's choice (``mesh.launch_mesh``): the reduced config (the
+default) serves on a 1 x 1 debug mesh (a one-rank group this launcher
+starts and tears down); ``--full`` serves the published config on the
+production mesh when launched in a group of 256 ranks, and on one card
+with no mesh when launched alone; each device's share of the bf16
+parameters must fit its memory.
 """
 
 from __future__ import annotations
@@ -19,11 +22,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced as make_reduced
 from repro_torch.core.vamana import VamanaParams, build_vamana
 from repro_torch.kernels.device_cache import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import build_model, torch_dtype
+from repro_torch.models.sharding import mesh_shape
 from repro_torch.serving.device_index import DeviceAnnIndex, make_probe_fn
 from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
 
@@ -32,13 +38,14 @@ from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
 FULL_PARAM_SHARE = 0.85
 
 
-def _check_fits(model, dev: torch.device, param_dtype: torch.dtype) -> None:
+def _check_fits(model, dev: torch.device, param_dtype: torch.dtype, shards: int = 1) -> None:
     """Refuses a model whose parameters (every tensor of its tree, a MoE's
-    experts included), stored in ``param_dtype``, exceed the card's share."""
+    experts included), stored in ``param_dtype`` and split ``shards`` ways,
+    exceed the card's share."""
     cfg = model.cfg
     if dev.type != "cuda":
         raise ValueError("--full serves the published widths on the card; pass --device cuda")
-    need = model.param_count() * torch.empty((), dtype=param_dtype).element_size()
+    need = model.param_count() * torch.empty((), dtype=param_dtype).element_size() / shards
     have = torch.cuda.get_device_properties(dev).total_memory
     if need > FULL_PARAM_SHARE * have:
         raise ValueError(f"{cfg.name}: {need / 1e9:.1f} GB of parameters do not fit "
@@ -64,15 +71,26 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    started = not dist.is_initialized()
+    try:
+        return _serve(args, dev)
+    finally:
+        if started:
+            mesh_lib.destroy()
+
+
+def _serve(args, dev: torch.device) -> int:
     serve_cfg = ServeConfig(knn_lambda=args.knn_lambda if args.retrieval else 0.0)
     param_dtype = torch_dtype(serve_cfg.param_dtype)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
+    mesh = mesh_lib.launch_mesh(args.reduced, dev)
+    tp = mesh_shape(mesh).get("model", 1) if mesh else 1
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = build_model(cfg, device=dev, generator=gen)
+    model = build_model(cfg, tp=tp, device=dev, generator=gen)
     if not args.reduced:
-        _check_fits(model, dev, param_dtype)
+        _check_fits(model, dev, param_dtype, shards=tp)
     params = model.init(dtype=param_dtype)
     max_len = args.prompt + args.gen
     rng = np.random.default_rng(0)
@@ -89,9 +107,11 @@ def main(argv=None) -> int:
         g = build_vamana(corpus.astype(np.float32), VamanaParams(R=8, L=16),
                          passes=1, batch=256, device=dev)
         index = DeviceAnnIndex.from_graphs([g], payloads=[corpus_tokens], device=dev)
-        probe = make_probe_fn(k=8, L=16, device=dev)
+        probe = make_probe_fn(mesh, k=8, L=16, device=dev)
 
-    prefill, decode, sample = make_serve_fns(model, cfg=serve_cfg, retrieval=probe, device=dev)
+    prefill, decode, sample, _ = make_serve_fns(
+        model, mesh, cfg=serve_cfg, retrieval=probe, index_template=index,
+        batch_hint=args.batch, max_len_hint=max_len, device=dev)
     ids_shape = (args.batch, args.prompt) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=ids_shape)).to(dev)
     cache = model.init_cache(args.batch, max_len)

@@ -3,14 +3,18 @@
     python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
         --steps 20 --batch 8 --seq 128 [--device cpu]
 
-Port of ``repro/launch/train.py`` on one card, with the same flags plus
-``--device`` (CUDA by default; raises without a card).  ``--reduced`` (the
-default) trains the smoke-scale variant; ``--full`` trains the published
-widths when the training state fits the card (f32 masters, gradients and
-both AdamW moments: 16 bytes a parameter) and refuses otherwise (a larger
-model waits for ``models/sharding.py``).  Checkpoints are committed through
-the catalog every ``--ckpt-every`` steps, and training resumes from the
-latest committed snapshot under ``--warehouse``.
+Port of ``repro/launch/train.py``, with the same flags plus ``--device``
+(CUDA by default; raises without a card).  The mesh is the reference's
+choice (``mesh.launch_mesh``): ``--reduced`` (the default) trains the
+smoke-scale variant on a 1 x 1 debug mesh (a one-rank group this launcher
+starts and tears down); ``--full`` trains the published widths on the
+production mesh when launched in a group of 256 ranks, and on one card
+with no mesh when launched alone, if the training state fits the card
+(:func:`check_fits`: f32 masters, gradients and both AdamW moments, 16
+bytes a parameter) and refusing otherwise.  Checkpoints are committed
+through the catalog every ``--ckpt-every`` steps (each leaf written whole),
+and training resumes from the latest committed snapshot under
+``--warehouse``.
 """
 
 from __future__ import annotations
@@ -20,13 +24,16 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced as make_reduced
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.iceberg.catalog import RestCatalog
 from repro_torch.kernels.device_cache import resolve_device
 from repro_torch.lakehouse.objectstore import ObjectStore
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import build_model
+from repro_torch.models.sharding import mesh_shape
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.train_loop import TrainStepConfig, init_train_state, make_train_step
 
@@ -68,17 +75,28 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    started = not dist.is_initialized()
+    try:
+        return _train(args, dev)
+    finally:
+        if started:
+            mesh_lib.destroy()
+
+
+def _train(args, dev: torch.device) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
-    model = build_model(cfg, device=dev)
-    if not args.reduced:
+    mesh = mesh_lib.launch_mesh(args.reduced, dev)
+    model = build_model(cfg, tp=mesh_shape(mesh).get("model", 1) if mesh else 1, device=dev)
+    if mesh is None:
         check_fits(model, dev)
     step, _ = make_train_step(
-        model, TrainStepConfig(microbatches=args.microbatches, lr=args.lr, remat=True), device=dev)
-    params, opt = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+        model, mesh, cfg=TrainStepConfig(microbatches=args.microbatches, lr=args.lr, remat=True),
+        device=dev)
+    params, opt = init_train_state(model, mesh, seed=0)
     print(f"[train] {args.arch} ({'reduced' if args.reduced else 'FULL'}): "
-          f"{model.param_count() / 1e6:.1f}M params on {dev}")
+          f"{model.param_count() / 1e6:.1f}M params on {dev}, mesh {mesh_shape(mesh) if mesh else None}")
 
     store = ObjectStore(args.warehouse or tempfile.mkdtemp())
     mgr = CheckpointManager(RestCatalog(store), async_save=True)

@@ -3,7 +3,9 @@
 Port of ``repro/models/layers.py``.  Functions are pure: a params tree
 (nested dicts of tensors) in, tensors out.  :class:`ParamBuilder` records a
 parallel tree of logical-axis tuples beside the params, as the reference's
-does, for the sharding rules that arrive with ``models/sharding.py``.
+does, for the sharding rules of ``models/sharding.py``.  On a mesh (q a
+DTensor) attention runs on each device's own (batch, head) block
+(``sharding.on_blocks``).
 
 The math is the reference's, operation for operation: each weight is cast
 to the activation dtype where it is used, norms compute in f32, RoPE
@@ -18,11 +20,14 @@ layer owes no hand-written one.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import is_dtensor, on_blocks
 
 # ---------------------------------------------------------------------------
 # parameter construction
@@ -246,6 +251,9 @@ def flash_attention(
     (q chunk, kv chunk) pair is computed and masked afterwards, as the
     reference's dense schedule does.  Memory per step is O(q_chunk ×
     kv_chunk)."""
+    if is_dtensor(q):
+        return on_blocks(partial(flash_attention, q_offset=q_offset, causal=causal, window=window,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk), q, k, v)
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
@@ -277,6 +285,25 @@ def flash_attention(
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def visible_pairs(nq: int, nk: int, q_chunk: int, kv_chunk: int, q_offset: int, causal: bool,
+                  window: int):
+    """The block-sparse schedule: every (q block, kv block) pair that is
+    neither entirely in the future nor entirely outside the window."""
+    pairs = []
+    for qi in range(nq):
+        q_lo = q_offset + qi * q_chunk
+        q_hi = q_lo + q_chunk - 1
+        for ki in range(nk):
+            kv_lo = ki * kv_chunk
+            kv_hi = kv_lo + kv_chunk - 1
+            if causal and kv_lo > q_hi:
+                continue  # entirely in the future
+            if window and kv_hi <= q_lo - window:
+                continue  # entirely outside the window
+            pairs.append((qi, ki))
+    return pairs
+
+
 def flash_attention_sparse(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Skv, KV, hd)
@@ -292,6 +319,9 @@ def flash_attention_sparse(
     pairs are computed, from the reference's static schedule (a pair
     entirely in the future or entirely outside the window is skipped), each
     q block with its own online-softmax state."""
+    if is_dtensor(q):
+        return on_blocks(partial(flash_attention_sparse, q_offset=q_offset, causal=causal,
+                                 window=window, q_chunk=q_chunk, kv_chunk=kv_chunk), q, k, v)
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
@@ -303,19 +333,7 @@ def flash_attention_sparse(
     qg = q.reshape(B, Sq, KV, G, hd)
     dev = q.device
 
-    # static visibility schedule
-    pairs = []
-    for qi in range(nq):
-        q_lo = q_offset + qi * q_chunk
-        q_hi = q_lo + q_chunk - 1
-        for ki in range(nk):
-            kv_lo = ki * kv_chunk
-            kv_hi = kv_lo + kv_chunk - 1
-            if causal and kv_lo > q_hi:
-                continue  # entirely in the future
-            if window and kv_hi <= q_lo - window:
-                continue  # entirely outside the window
-            pairs.append((qi, ki))
+    pairs = visible_pairs(nq, nk, q_chunk, kv_chunk, q_offset, causal, window)
 
     # each q block's state in a list of its own (as the dense schedule keeps
     # it in locals): rebinding an entry, never writing into a tensor that
@@ -347,6 +365,9 @@ def decode_attention(
     pos: int,  # current position
     window: int = 0,
 ) -> torch.Tensor:
+    if is_dtensor(q):
+        return on_blocks(lambda a, b, c, d: decode_attention(a, b, c, d, pos, window),
+                         q, k_cache, v_cache, cache_positions)
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
     G = H // KV

@@ -134,13 +134,16 @@ def mamba2_chunked(
         decay = torch.where(tri[None, :, :, None], decay, -torch.inf)
         w = scores[..., None] * torch.exp(decay) * dtb[:, None, :, :]  # (B,i,j,H)
         y_intra = torch.einsum("bijh,bjhp->bihp", w, xb)
-        # inter-chunk: y_i += C_i · exp(cum_i) h_prev
-        y_inter = torch.einsum("bin,bhnp->bihp", Cb, h) * torch.exp(cum)[..., None]
+        # inter-chunk: y_i += C_i · exp(cum_i) h_prev, in the reference's
+        # contraction order: the outer product C_i ⊗ exp(cum_i) (a matmul of
+        # inner dim 1, exact), then the contraction with the state over n
+        ce = Cb[..., :, None] @ torch.exp(cum)[..., None, :]  # (B,i,n,h)
+        y_inter = torch.einsum("binh,bhnp->bihp", ce, h)
         # carry: h_new = exp(cum_last) h_prev + Σ_j exp(cum_last-cum_j) Δ_j B_j x_jᵀ
         cl = cum[:, -1, :]  # (B,H)
         carry_gate = torch.exp(cl[:, None, :] - cum) * dtb  # (B,chunk,H)
-        h = torch.exp(cl)[:, :, None, None] * h + torch.einsum(
-            "bjh,bjn,bjhp->bhnp", carry_gate, Bb, xb)
+        gb = carry_gate[..., :, None] @ Bb[..., None, :]  # (B,j,h,n): the outer product, exact
+        h = torch.exp(cl)[:, :, None, None] * h + torch.einsum("bjhn,bjhp->bhnp", gb, xb)
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)  # (B,S,H,P)
     return _finish(p, y, xh, z, x), conv, h

@@ -42,6 +42,7 @@ KV heads are padded up to the tensor-parallel degree by the reference's rule
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Optional
 
@@ -530,8 +531,8 @@ class Mamba(Model):
                 def attend(p, h):
                     att, (k, v) = _attn_full(p, self._cfg_kv, h, 0)
                     kept = k[:, -W:].shape[1]
-                    sk[slot] = 0
-                    sv[slot] = 0
+                    sk[slot].zero_()
+                    sv[slot].zero_()
                     sk[slot, :, :kept] = k[:, -W:].to(sk.dtype)
                     sv[slot, :, :kept] = v[:, -W:].to(sv.dtype)
                     return att
@@ -594,6 +595,13 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, device="cuda",
 def param_shapes(model: Model):
     """Shape-only (``meta``) tree of the params (no allocation)."""
     return _init_params(model.cfg, model.kv_eff, None, abstract=True)[0]
+
+
+def cache_shapes(model: Model, batch: int, max_len: int):
+    """Shape-only (``meta``) tree of ``model.init_cache(batch, max_len)``."""
+    meta = copy.copy(model)
+    meta.device = torch.device("meta")
+    return meta.init_cache(batch, max_len)
 
 
 def params_from_numpy(model: Model, tree, dtype: torch.dtype = torch.float32) -> Any:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamBuilder
+from repro_torch.models.sharding import placed_like
 
 
 def add_moe_params(b: ParamBuilder, path: str, cfg, layer_axes=()) -> None:
@@ -109,7 +110,9 @@ def moe_block(
     h = L.silu(g) * u
     expert_out = torch.bmm(h, p["wo"].to(x.dtype)).reshape(E, G, C, D)
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
-    return out.reshape(B, S, D), aux
+    # on a mesh, back in the tokens' layout before the groups unflatten
+    # into (B, S): DTensor may split the groups over more devices than B
+    return placed_like(out, xg).reshape(B, S, D), aux
 
 
 def moe_block_dense_ref(p: dict, x: torch.Tensor, *, num_experts: int, top_k: int) -> torch.Tensor:

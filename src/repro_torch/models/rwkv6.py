@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamBuilder
+from repro_torch.models.sharding import split_only, splittable
 
 
 def add_rwkv6_params(b: ParamBuilder, path: str, cfg, layer_axes=()) -> None:
@@ -69,7 +70,8 @@ def _mix(x, x_shift, mu):
 def _heads(x, w):
     """(B,S,D) @ (D,H,N) -> (B,S,H,N) in x's dtype."""
     D, H, N = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * N)).reshape(x.shape[:-1] + (H, N))
+    y = splittable(x @ w.to(x.dtype).reshape(D, H * N), -1, H)
+    return y.reshape(x.shape[:-1] + (H, N))
 
 
 def _project(p, x, xs):
@@ -90,6 +92,7 @@ def _out(p, o, g, x):
     """Gate the (B,S,H,N) wkv output and project it back to (B,S,D)."""
     o = o.to(x.dtype) * L.silu(g)
     H, N, D = p["wo"].shape
+    o = splittable(o, 2, H)  # an uneven split of the heads cannot merge into H·N
     return o.reshape(o.shape[:2] + (H * N,)) @ p["wo"].to(x.dtype).reshape(H * N, D)
 
 
@@ -117,6 +120,9 @@ def rwkv6_chunked(
     H, N = r.shape[2], r.shape[3]
     u = p["u_bonus"].float()
     nC = S // chunk
+    # on a mesh the scan keeps the batch split and the rest whole: its
+    # per-chunk contractions merge the head dim with others
+    r, k, v, log_w, state = (split_only(t, (0,)) for t in (r, k, v, log_w, state))
 
     def to_chunks(a):  # (B,S,H,N) -> (nC, B, H, C, N)
         return a.reshape(B, nC, chunk, H, N).permute(1, 0, 3, 2, 4)
@@ -136,10 +142,13 @@ def rwkv6_chunked(
         expo = A_prev[:, :, :, None, :] - A[:, :, None, :, :]  # (B,H,i,j,N)
         expo = torch.where(tri[None, None, :, :, None], expo, -torch.inf)
         gate = torch.exp(expo)
-        s = (rb[:, :, :, None, :] * kb[:, :, None, :, :] * gate).sum(dim=-1)  # (B,H,C,C)
+        # the reference's contractions, as matmuls: r_i ⊗ k_j over each n
+        # (inner dim 1, exact), then its dot with the gate over n
+        outer = rb.transpose(2, 3)[..., :, None] @ kb.transpose(2, 3)[..., None, :]  # (B,H,N,i,j)
+        s = (outer.permute(0, 1, 3, 4, 2)[..., None, :] @ gate[..., :, None])[..., 0, 0]  # (B,H,C,C)
         o_intra = s @ vb
         # diagonal bonus term
-        diag = (rb * u[None, :, None, :] * kb).sum(dim=-1)  # (B,H,C)
+        diag = ((rb * u[None, :, None, :])[..., None, :] @ kb[..., :, None])[..., 0, 0]  # (B,H,C)
         o_diag = diag[..., None] * vb
         # state carry
         A_last = A[:, :, -1:, :]  # (B,H,1,N)

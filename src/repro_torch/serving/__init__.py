@@ -3,8 +3,7 @@ micro-batcher and the device-resident ANN probe.
 
 The micro-batcher imports the coordinator, which imports this package's
 caches, so it (and the device index and the LM serving steps,
-``make_serve_fns`` / ``ServeConfig``) load lazily.  Still to come, with
-``launch/``: ``DeviceAnnIndex.abstract`` / ``shardings``.
+``make_serve_fns`` / ``ServeConfig``) load lazily.
 """
 
 from repro_torch.serving.admission import (  # noqa: F401

@@ -39,7 +39,18 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.device_cache import concrete_device
-from repro_torch.models.model import Model, torch_dtype
+from repro_torch.models.model import Model, cache_shapes, param_shapes, torch_dtype
+from repro_torch.models.sharding import (
+    DEFAULT_RULES,
+    LogicalRules,
+    NamedSharding,
+    implicit_replication,
+    is_dtensor,
+    logical_to_sharding,
+    place,
+    place_tree,
+    spec_for,
+)
 from repro_torch.runtime.coordinator import ProbeReport
 from repro_torch.serving.admission import (
     AdmissionController,
@@ -635,12 +646,17 @@ class ServeConfig:
 
 def make_serve_fns(
     model: Model,
+    mesh=None,
+    rules: Optional[LogicalRules] = None,
     cfg: ServeConfig = ServeConfig(),
     retrieval: Optional[Callable] = None,  # probe fn from make_probe_fn
+    index_template=None,  # a DeviceAnnIndex: structure for the index's shardings
+    batch_hint: int = 1,
+    max_len_hint: int = 1,
     device="cuda",
 ):
     """The serving steps of ``model`` on ``device`` (CUDA by default; raises
-    without a card): ``(prefill_step, serve_step, sample)``.
+    without a card): ``(prefill_step, serve_step, sample, Shardings)``.
 
     - ``prefill_step(params, ids, cache)`` → (last-token logits, cache);
     - ``serve_step(params, ids, cache, pos, index=None)`` → (logits, cache):
@@ -651,10 +667,18 @@ def make_serve_fns(
       ``cfg.greedy``, else a categorical draw from ``generator``.
 
     ``params`` must be stored in ``cfg.param_dtype`` on ``device`` (the
-    steps raise otherwise: serving keeps no f32 masters).  The reference's
-    mesh, ``rules``, ``index_template`` and the returned ``Shardings``
-    arrive with the port of ``models/sharding.py`` and ``launch/``; on one
-    card the steps run eagerly."""
+    steps raise otherwise: serving keeps no f32 masters).
+
+    With ``mesh=None`` the steps run eagerly on tensors, and the fourth
+    element is ``None``.  On a mesh (a ``DeviceMesh``), as the reference's
+    ``jit(in_shardings=...)``: params, cache and ids are placed by ``rules``
+    (default :data:`DEFAULT_RULES`) as DTensors at each call (a tensor
+    already in its placement is left alone), the cache's placement sized
+    by ``batch_hint`` / ``max_len_hint``, the index's by
+    ``index_template.shardings(mesh)`` (required with ``retrieval``); the
+    steps run under ``implicit_replication`` and return DTensors (the
+    cache in its placement).  ``Shardings`` has ``params``, ``cache``,
+    ``ids`` and ``index``."""
     dev = concrete_device(device)
     if model.device != dev:
         raise ValueError(f"the model lives on {model.device}, the serving steps on {dev}")
@@ -668,15 +692,58 @@ def make_serve_fns(
                 raise ValueError(f"param {path}{key} is {leaf.dtype} on {leaf.device}; "
                                  f"serving takes {want} on {dev}")
 
-    def prefill_step(params, ids, cache):
+    shardings = None
+    if mesh is not None:
+        rules = rules or DEFAULT_RULES
+        ids_extra = (model.cfg.num_codebooks,) if model.cfg.num_codebooks else ()
+        batch_logical = ("batch", "seq") + (("codebook",) if ids_extra else ())
+
+        class Shardings:
+            params = logical_to_sharding(model.axes, rules, mesh, shapes_tree=param_shapes(model))
+            cache = logical_to_sharding(
+                model.cache_axes(batch_hint, max_len_hint), rules, mesh,
+                shapes_tree=cache_shapes(model, batch_hint, max_len_hint))
+            ids = NamedSharding(mesh, spec_for(batch_logical, rules, mesh,
+                                               dim_sizes=(batch_hint, 1) + ids_extra))
+            index = None
+
+        if retrieval is not None:
+            if index_template is None:
+                raise ValueError("retrieval requires index_template for shardings")
+            Shardings.index = index_template.shardings(mesh)
+        shardings = Shardings
+
+    def as_ids(ids):
+        return ids if torch.is_tensor(ids) and ids.device == dev else torch.as_tensor(ids, device=dev)
+
+    def on_mesh(params, ids, cache):
+        """The step's inputs in their placements (unchanged without a mesh)."""
         check_params(params)
-        return model.prefill(params, torch.as_tensor(ids, device=dev), cache)
+        ids = as_ids(ids)
+        if mesh is None:
+            return params, ids, cache
+        return (place_tree(params, shardings.params), place(ids, shardings.ids),
+                place_tree(cache, shardings.cache))
+
+    def prefill_step(params, ids, cache):
+        params, ids, cache = on_mesh(params, ids, cache)
+        if mesh is None:
+            return model.prefill(params, ids, cache)
+        with implicit_replication():
+            logits, cache = model.prefill(params, ids, cache)
+        return logits, place_tree(cache, shardings.cache)
 
     def serve_step(params, ids, cache, pos, index=None):
         """One decode step: logits for the new token (+ cache update),
         optionally kNN-LM-interpolated against the ANN index."""
-        check_params(params)
-        logits, cache = model.decode(params, torch.as_tensor(ids, device=dev), cache, pos)
+        params, ids, cache = on_mesh(params, ids, cache)
+        if mesh is None:
+            return _decode(params, ids, cache, pos, index)
+        with implicit_replication():
+            return _decode(params, ids, cache, pos, index)
+
+    def _decode(params, ids, cache, pos, index):
+        logits, cache = model.decode(params, ids, cache, pos)
         if retrieval is None or index is None:
             return logits, cache
         # Query vector: the probability-weighted lm_head embedding of the
@@ -690,6 +757,8 @@ def make_serve_fns(
         else:
             q = torch.einsum("bsv,dv->bsd", probs.to(head.dtype), head)[:, 0]
         dists, neigh_tokens = retrieval(index, q)  # (B, k), (B, k)
+        if mesh is not None:  # the mesh probe's answer is replicated
+            dists, neigh_tokens = dists.to_local(), neigh_tokens.to_local()
         # scatter neighbour tokens into a vocab distribution
         w = torch.softmax(-dists / cfg.knn_temperature, dim=-1)  # (B, k)
         V = logits.shape[-1]
@@ -702,10 +771,12 @@ def make_serve_fns(
         return torch.log(torch.clamp(mixed, min=1e-20))[:, None], cache
 
     def sample(logits, generator: Optional[torch.Generator] = None):
+        if is_dtensor(logits):
+            logits = logits.full_tensor()
         if cfg.greedy:
             return torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits.float(), dim=-1)
         flat = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator)
         return flat.reshape(probs.shape[:-1])
 
-    return prefill_step, serve_step, sample
+    return prefill_step, serve_step, sample, shardings

@@ -49,6 +49,7 @@ from repro_torch.iceberg.snapshot import (
     write_manifest_list,
 )
 from repro_torch.lakehouse.objectstore import ObjectStore
+from repro_torch.models.sharding import is_dtensor, local_block
 
 PUT_WORKERS = 4  # leaves hashed and written at once by a save's thread
 
@@ -76,6 +77,8 @@ def _host_npy(t: torch.Tensor) -> bytearray:
     reference's ``np.save`` of an ml_dtypes bfloat16 array writes (descr
     ``<V2``; plain numpy would write ``|V2``)."""
     t = t.detach()
+    if is_dtensor(t):  # a leaf placed on a mesh is written whole
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         descr, t = "<V2", t.view(torch.int16)
     else:
@@ -114,6 +117,9 @@ def _fill(dst: torch.Tensor, data: bytes) -> None:
         # read only: the bytes are copied to ``dst`` and never written
         warnings.filterwarnings("ignore", "The given NumPy array is not writable")
         src = torch.from_numpy(arr)
+    if is_dtensor(dst):  # a leaf placed on a mesh takes its rank's block
+        src = local_block(src, dst.device_mesh, dst.placements)
+        dst = dst.to_local()
     dst.copy_(src.view(dst.dtype) if void else src)
 
 

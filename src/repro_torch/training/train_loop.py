@@ -1,7 +1,7 @@
 """Train-step factory: CE loss, microbatched gradient accumulation, remat.
 
-Port of ``repro/training/train_loop.py`` on one device.
-``make_train_step(model, cfg, device)`` returns ``(train_step, None)``:
+Port of ``repro/training/train_loop.py``.  ``make_train_step(model, mesh,
+rules, cfg, device)`` returns ``(train_step, Shardings)``:
 
     train_step(params, opt_state, ids, labels) -> (params, opt_state, metrics)
 
@@ -11,8 +11,17 @@ summed in f32 and divided by the count, then one AdamW update.  ``remat``
 wraps the loss in ``torch.utils.checkpoint`` as the reference wraps it in
 ``jax.checkpoint``.  The step updates the caller's ``params`` and
 ``opt_state`` in place and returns them, as the reference donates its
-buffers.  The second element stands where the reference returns its
-shardings; it comes back with the port of ``models/sharding.py``.
+buffers.
+
+With ``mesh=None`` the step runs on one device and ``Shardings`` is
+``None``.  On a ``DeviceMesh`` the params follow ``rules`` (default
+:data:`DEFAULT_RULES`), the AdamW moments follow ``rules`` with ``embed``
+also over ``data`` (ZeRO-1, the reference's), the step counter is
+replicated, and each microbatch's ids and labels are split by
+``spec_for(("batch", "seq"[, "codebook"]))``; the step places what it is
+given (a DTensor already in place is left alone) and DTensor inserts the
+collectives: the gradient reductions where a gradient meets its buffer, and
+the moments' gather where the update meets the params.
 
 Gradients accumulate straight into one f32 buffer a parameter: each stacked
 ``layers/...`` tensor is split into per-layer leaves whose ``.grad`` is that
@@ -23,13 +32,28 @@ backward a zero-filled copy of the whole stack).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.device_cache import concrete_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, param_shapes
+from repro_torch.models.sharding import (
+    DEFAULT_RULES,
+    LogicalRules,
+    NamedSharding,
+    PartitionSpec,
+    implicit_replication,
+    is_dtensor,
+    logical_to_sharding,
+    place,
+    place_tree,
+    spec_for,
+    with_rules,
+)
 from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update, tree_leaves, tree_map
 
 
@@ -55,7 +79,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         labels = labels.reshape(B, S * CB)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # on a mesh the gold logit is a masked sum over the (vocab-split)
+        # last dim, one term: the same value; DTensor's vocab-parallel
+        # gather handles 2-D tables only
+        V = logits.shape[-1]
+        hit = torch.arange(V, device=labels.device) == labels.clamp(min=0)[..., None]
+        gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     nll = logz - gold
     mask = labels >= 0
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
@@ -79,13 +111,37 @@ def _grad_leaves(params, grads, pairs: list):
     return out
 
 
-def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig(), device="cuda"):
-    """Returns ``(train_step, None)`` for ``model`` on ``device`` (CUDA by
-    default; raises without a card).  ``ids`` / ``labels`` may be numpy
-    arrays or tensors; they are moved to the device."""
+def _data_ptr(t: torch.Tensor) -> int:
+    return (t.to_local() if is_dtensor(t) else t).data_ptr()
+
+
+def _shardings(model: Model, mesh, rules: LogicalRules):
+    shapes = param_shapes(model)
+    moments = logical_to_sharding(model.axes, with_rules(rules, embed=("data",)), mesh,
+                                  shapes_tree=shapes)
+    batch_logical = ("batch", "seq") + (("codebook",) if model.cfg.num_codebooks else ())
+
+    class Shardings:
+        params = logical_to_sharding(model.axes, rules, mesh, shapes_tree=shapes)
+        opt = AdamWState(m=moments, v=moments, step=NamedSharding(mesh, PartitionSpec()))
+        batch = NamedSharding(mesh, spec_for(batch_logical, rules, mesh, dim_sizes=None))
+
+    Shardings.rules, Shardings.batch_logical = rules, batch_logical
+
+    return Shardings
+
+
+def make_train_step(model: Model, mesh=None, rules: Optional[LogicalRules] = None,
+                    cfg: TrainStepConfig = TrainStepConfig(), device="cuda"):
+    """Returns ``(train_step, Shardings)`` for ``model`` on ``device`` (CUDA
+    by default; raises without a card); ``Shardings`` (``params``, ``opt``,
+    ``batch``) is ``None`` without a mesh.  ``ids`` / ``labels`` may be
+    numpy arrays or tensors, the whole batch; they are moved to the
+    device."""
     dev = concrete_device(device)
     if model.device != dev:
         raise ValueError(f"the model lives on {model.device}, the step on {dev}")
+    sh = None if mesh is None else _shardings(model, mesh, rules or DEFAULT_RULES)
 
     def loss_fn(params, ids, labels):
         logits, aux = model.forward(params, ids)
@@ -97,6 +153,7 @@ def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig(), devi
         return loss_fn(params, ids, labels)
 
     def train_step(params, opt_state: AdamWState, ids, labels):
+        ids, labels = (x.full_tensor() if is_dtensor(x) else x for x in (ids, labels))
         ids = torch.as_tensor(ids).to(dev, torch.int64)
         labels = torch.as_tensor(labels).to(dev, torch.int64)
         n_micro = cfg.microbatches
@@ -104,31 +161,51 @@ def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig(), devi
         if B % n_micro:
             raise ValueError(f"batch {B} does not split into {n_micro} microbatches")
         mb = B // n_micro
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
-        pairs: list = []
-        leaves = _grad_leaves(params, grads, pairs)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(n_micro):
-            rows = slice(i * mb, (i + 1) * mb)
-            loss = loss_for_grad(leaves, ids[rows], labels[rows])
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-        if any(t.grad.data_ptr() != g.data_ptr() for t, g in pairs):
-            raise RuntimeError("autograd replaced a gradient buffer instead of adding into it")
-        del leaves, pairs
-        for g in tree_leaves(grads):
-            g.div_(n_micro)
-        params, opt_state, stats = adamw_update(
-            params, grads, opt_state,
-            lr=cfg.lr, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm,
-        )
+        if sh is not None:
+            params, opt_state = place_tree(params, sh.params), place_tree(opt_state, sh.opt)
+        with nullcontext() if sh is None else implicit_replication():
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            pairs: list = []
+            leaves = _grad_leaves(params, grads, pairs)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(n_micro):
+                rows = slice(i * mb, (i + 1) * mb)
+                mi, ml = ids[rows], labels[rows]
+                if sh is not None:  # each microbatch split over the batch axes it divides
+                    split = NamedSharding(mesh, spec_for(sh.batch_logical, sh.rules, mesh,
+                                                         dim_sizes=tuple(mi.shape)))
+                    mi, ml = place(mi, split), place(ml, split)
+                loss = loss_for_grad(leaves, mi, ml)
+                if is_dtensor(loss):
+                    loss = loss.full_tensor()
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+            if any(_data_ptr(t.grad) != _data_ptr(g) for t, g in pairs):
+                raise RuntimeError("autograd replaced a gradient buffer instead of adding into it")
+            del leaves, pairs
+            for g in tree_leaves(grads):
+                g.div_(n_micro)
+            params, opt_state, stats = adamw_update(
+                params, grads, opt_state,
+                lr=cfg.lr, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm,
+            )
         return params, opt_state, {"loss": loss_sum / n_micro, **stats}
 
-    return train_step, None
+    return train_step, sh
 
 
-def init_train_state(model: Model, generator: torch.Generator):
-    """f32 master params drawn from ``generator`` on the model's device, and
-    their AdamW state."""
+def init_train_state(model: Model, mesh=None, rules: Optional[LogicalRules] = None,
+                     seed: int = 0, *, generator: Optional[torch.Generator] = None):
+    """f32 master params drawn from ``generator`` (default: a generator on
+    the model's device seeded with ``seed``), and their AdamW state.  On a
+    mesh, each rank draws the whole tree from the same seed and keeps its
+    blocks: params by ``rules``, moments by the ZeRO-1 rules, as
+    ``make_train_step``'s ``Shardings`` place them."""
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(generator, dtype=torch.float32)
-    return params, adamw_init(params)
+    opt = adamw_init(params)
+    if mesh is None:
+        return params, opt
+    sh = _shardings(model, mesh, rules or DEFAULT_RULES)
+    return place_tree(params, sh.params), place_tree(opt, sh.opt)

@@ -127,7 +127,7 @@ def test_knn_lm_decode_matches_oracle(arch):
         seen["d"], seen["tok"] = port_probe(index, q)
         return seen["d"], seen["tok"]
 
-    prefill, decode, _ = make_serve_fns(
+    prefill, decode, _, _ = make_serve_fns(
         model, cfg=ServeConfig(knn_lambda=lam, knn_temperature=temp, param_dtype="float32"),
         retrieval=probe, device=CPU)
     idx = DeviceAnnIndex.from_graphs([g], payloads=[tokens], device=CPU)
@@ -155,7 +155,7 @@ def test_knn_lm_decode_runs_and_mixes():
     g = build_vamana(corpus, VamanaParams(R=8, L=16), passes=1, batch=128, device=CPU)
     idx = DeviceAnnIndex.from_graphs([g], payloads=[tokens], device=CPU)
     probe = make_probe_fn(k=4, L=16, device=CPU)
-    prefill, decode, sample = make_serve_fns(
+    prefill, decode, sample, _ = make_serve_fns(
         model, cfg=ServeConfig(knn_lambda=0.5), retrieval=probe, device=CPU)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 8)))
     cache = model.init_cache(2, 16)
@@ -163,7 +163,7 @@ def test_knn_lm_decode_runs_and_mixes():
     logits, cache = decode(params, ids[:, -1:], cache, 8, idx)
     assert bool(torch.isfinite(logits).all())
     # λ=0 vs λ=0.5 must differ (retrieval actually contributes)
-    prefill0, decode0, _ = make_serve_fns(
+    prefill0, decode0, _, _ = make_serve_fns(
         model, cfg=ServeConfig(knn_lambda=0.0), retrieval=probe, device=CPU)
     cache0 = model.init_cache(2, 16)
     _, cache0 = prefill0(params, ids, cache0)
@@ -176,7 +176,7 @@ def test_greedy_generation_loop():
     cfg = dataclasses.replace(reduced(get_config("chatglm3-6b")), num_layers=2)
     model = build_model(cfg, device=CPU)
     params = model.init(torch.Generator().manual_seed(1), dtype=torch.bfloat16)
-    prefill, decode, sample = make_serve_fns(model, device=CPU)
+    prefill, decode, sample, _ = make_serve_fns(model, device=CPU)
     rng = np.random.default_rng(3)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 8)))
     cache = model.init_cache(1, 24)
@@ -211,7 +211,7 @@ def test_greedy_loop_matches_reference(arch):
         tok = jnp.argmax(logits, axis=-1)
         want.append(np.asarray(tok))
 
-    prefill, decode, sample = make_serve_fns(model, cfg=ServeConfig(param_dtype="float32"),
+    prefill, decode, sample, _ = make_serve_fns(model, cfg=ServeConfig(param_dtype="float32"),
                                              device=CPU)
     cache = model.init_cache(2, 24)
     logits, cache = prefill(params, torch.from_numpy(prompt), cache)
@@ -227,7 +227,7 @@ def test_greedy_loop_matches_reference(arch):
 def test_sampling_draws_from_the_generator():
     cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), num_layers=1)
     model = build_model(cfg, device=CPU)
-    _, _, sample = make_serve_fns(model, cfg=ServeConfig(greedy=False), device=CPU)
+    _, _, sample, _ = make_serve_fns(model, cfg=ServeConfig(greedy=False), device=CPU)
     logits = torch.randn((4, 1, cfg.vocab_size), generator=torch.Generator().manual_seed(0))
     a = sample(logits, torch.Generator().manual_seed(7))
     b = sample(logits, torch.Generator().manual_seed(7))
@@ -243,7 +243,7 @@ def test_serving_refuses_params_not_in_serving_dtype():
     cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), num_layers=1)
     model = build_model(cfg, device=CPU)
     params = model.init(torch.Generator().manual_seed(0))  # f32
-    prefill, _, _ = make_serve_fns(model, device=CPU)
+    prefill, _, _, _ = make_serve_fns(model, device=CPU)
     with pytest.raises(ValueError, match="bfloat16"):
         prefill(params, torch.zeros((1, 4), dtype=torch.int64), model.init_cache(1, 8))
 

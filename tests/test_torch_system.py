@@ -183,13 +183,25 @@ from repro_torch.lakehouse.objectstore import ObjectStore
 from repro_torch.training import CheckpointManager, TrainStepConfig, make_train_step
 from repro_torch.training.train_loop import init_train_state
 m = build_model(reduced(get_config("qwen2.5-3b")), device="cpu")
-step, _ = make_train_step(m, TrainStepConfig(microbatches=2), device="cpu")
-p, o = init_train_state(m, torch.Generator().manual_seed(0))
+step, _ = make_train_step(m, None, cfg=TrainStepConfig(microbatches=2), device="cpu")
+p, o = init_train_state(m, seed=0)
 p, o, met = step(p, o, *SyntheticTokens(vocab_size=512, seq_len=8, batch_size=2).batch(0))
 mgr = CheckpointManager(RestCatalog(ObjectStore({str(tmp_path / "ckpt")!r})))
 mgr.save(0, {{"params": p, "opt": o}})
 assert mgr.restore({{"params": p, "opt": o}})[1] == 0
 runpy.run_path({str(Path(SRC).parent / "examples" / "torch_train_checkpointed.py")!r})
+# sharding and the dry-runs: the rules, the mesh factories, the analysis
+# and the dry-run launchers, and a sharded step on a one-rank mesh
+import repro_torch.models.sharding, repro_torch.launch.mesh, repro_torch.launch.specs
+import repro_torch.launch.dryrun, repro_torch.launch.probe_dryrun, repro_torch.launch.hillclimb
+import repro_torch.analysis.flops, repro_torch.analysis.hlo, repro_torch.analysis.roofline
+import repro_torch.analysis.report
+from repro_torch.launch.mesh import destroy, make_debug_mesh
+mesh = make_debug_mesh(1, 1, device="cpu")
+step, sh = make_train_step(m, mesh, cfg=TrainStepConfig(microbatches=2), device="cpu")
+p, o = init_train_state(m, mesh, seed=0)
+p, o, met = step(p, o, *SyntheticTokens(vocab_size=512, seq_len=8, batch_size=2).batch(0))
+destroy()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 """
@@ -221,7 +233,7 @@ def test_entry_points_refuse_missing_cuda(tmp_path, entry):
     example = str(Path(SRC).parent / "examples" / "torch_train_checkpointed.py")
     calls = {
         "train_step": lambda: make_train_step(build_model(cfg, device="cpu")),
-        "train_state": lambda: init_train_state(build_model(cfg), torch.Generator()),
+        "train_state": lambda: init_train_state(build_model(cfg), generator=torch.Generator()),
         "train_launcher": lambda: train_launcher.main(["--arch", "qwen2.5-3b", "--steps", "1"]),
         "train_example": lambda: runpy.run_path(example)["main"](),
         "cluster": lambda: port_cluster(str(tmp_path)),

@@ -140,7 +140,7 @@ def port_step_capturing(model, cfg, params, opt, ids, labels):
 
     TL.adamw_update = spy
     try:
-        step, none = TL.make_train_step(model, cfg, device="cpu")
+        step, none = TL.make_train_step(model, None, cfg=cfg, device="cpu")
         assert none is None
         params, opt, metrics = step(params, opt, ids, labels)
     finally:
@@ -415,7 +415,7 @@ def test_no_leaf_of_a_step_is_left_requiring_grad():
     params, opt = _to_port(model, ref_params, ref_adamw_init(ref_params))
     before = [t.data_ptr() for t in tree_leaves(params) + tree_leaves(opt)]
     ids, labels = SyntheticTokens(vocab_size=model.cfg.vocab_size, seq_len=SEQ, batch_size=BATCH).batch(0)
-    step, _ = TL.make_train_step(model, STEP_CFG, device="cpu")
+    step, _ = TL.make_train_step(model, None, cfg=STEP_CFG, device="cpu")
     p2, o2, m = step(params, opt, ids, labels)
     assert p2 is params and o2 is opt
     assert [t.data_ptr() for t in tree_leaves(p2) + tree_leaves(o2)] == before

@@ -100,7 +100,7 @@ def test_loss_decreases_small_model():
     cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), num_layers=2)
     model = _build(cfg)
     params = _init(model)
-    step, _ = make_train_step(model, TrainStepConfig(microbatches=1, lr=1e-3, remat=False), device="cpu")
+    step, _ = make_train_step(model, None, cfg=TrainStepConfig(microbatches=1, lr=1e-3, remat=False), device="cpu")
     opt = adamw_init(params)
     data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=32, batch_size=8, seed=7)
     losses = []
@@ -215,7 +215,7 @@ def test_train_resume_after_crash(tmp_store):
     """checkpoint → 'crash' → restore → continue: loss trajectory intact."""
     cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), num_layers=2)
     model = _build(cfg)
-    step, _ = make_train_step(model, TrainStepConfig(microbatches=1, lr=1e-3, remat=False), device="cpu")
+    step, _ = make_train_step(model, None, cfg=TrainStepConfig(microbatches=1, lr=1e-3, remat=False), device="cpu")
     data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=16, batch_size=4, seed=3)
     params = _init(model)
     opt = adamw_init(params)
@@ -438,7 +438,7 @@ def test_async_save_then_in_place_step_restores_the_saved_state(tmp_store):
     are taken before the thread starts)."""
     cfg = dataclasses.replace(reduced(get_config("qwen2.5-3b")), num_layers=2)
     model = _build(cfg)
-    step, _ = make_train_step(model, TrainStepConfig(microbatches=2, lr=1e-3), device="cpu")
+    step, _ = make_train_step(model, None, cfg=TrainStepConfig(microbatches=2, lr=1e-3), device="cpu")
     params = _init(model)
     opt = adamw_init(params)
     data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=16, batch_size=4, seed=1)
