@@ -24,20 +24,27 @@ no result line):
    masked, k > N, k > passing rows, ties, ip and l2, ragged shapes,
    Q = 1, a dedup'd plane with repeated rows, unified with all-exact,
    all-ADC and mixed flavors, unified against split bit for bit).
+   2b: the autotuner (``kernels/autotune.py``): its sweep at one point
+   into a temporary file, every candidate query tile of every masked
+   flavor bit for bit the default tile at phase 2's shapes, and the
+   committed cache's tiles at phases 4, 6 and 7's shapes with their device
+   ms beside the default's.
 3. The main path: a SIFT1M-shaped deployment (ann-benchmarks
-   sift-128-euclidean: N = 1,000,000 x 128 f32, L2, 10,000 queries,
-   k = 10), made from ``--seed`` as a Gaussian mixture with an int64
-   ``price`` attribute uniform on [0, 10000), goes through
-   ``make_local_cluster`` (4 executors, one card), ``create_index`` and 100
-   ``probe(strategy="diskann")`` calls of 100 queries; recall@10 against
-   ``brute_force_topk`` must reach 0.90.
+   sift-128-euclidean: N = 1,000,000 x 128 f32, L2, k = 10; its 10,000
+   queries cut to 2,000 for the time limit), made from ``--seed`` as a
+   Gaussian mixture with an int64 ``price`` attribute uniform on [0,
+   10000), goes through ``make_local_cluster`` (4 executors, one card),
+   ``create_index`` (build_batch 2,048) and 20 ``probe(strategy="diskann")``
+   calls of 100 queries; recall@10 against ``brute_force_topk`` must reach
+   0.90.  Phase 10's fault demo and the launchers of 11c and 13c run as
+   processes beside it, one after another, and their phases read them.
 4. Filtered probes on that index: ``price < 4`` (ExactScan after
    resolution), ``price < 200`` (MaskedBeam) and ``price < 9000``
-   (PostfilterBeam), 5 ``probe`` calls of 100 queries each, then 5
+   (PostfilterBeam), 2 ``probe`` calls of 100 queries each, then 2
    ``probe_batch`` calls mixing 10 distinct predicates; recall@10 against
    the plain masked op on the card: 0.99 on ExactScan rows, 0.90 on the
    beam bands.
-5. The fresh tail: 65,536 rows appended without a refresh, 5 unfiltered
+5. The fresh tail: 16,384 rows appended without a refresh, 2 unfiltered
    ``probe`` calls and a heterogeneous filtered ``probe_batch``; every true
    neighbour that lies in the tail must be returned.
 6. A small-shard catalog (131,072 x 128, 32 shards of 4,096 rows, PQ
@@ -46,23 +53,23 @@ no result line):
 7. Quantized ExactScans on the phase-6 catalog (before any refresh): a
    ``price < 900`` probe (9 %: ExactScan on every 4,096-row shard, where
    the planner gives ExactScan its scan dtype) and batches of ten distinct
-   ``price < 90..900`` predicates, 5 calls of 100 queries each, with
+   ``price < 90..900`` predicates, 2 calls of 100 queries each, with
    ``scan_dtype`` bf16 and int8 (the bf16 / int8 scan at
    ``quant_guard_pool(k)``, then the full-precision ``gather_rerank``
    guard); recall@10 against the plain f32 masked op of 0.99.
 8. Refresh of the 1M index: one of the 16 base files is deleted (62,500
    rows, about 6 % of a shard, under the 0.20 rebuild ratio) and
-   ``compact_tail`` folds the 65,536 tail rows into the shards through
+   ``compact_tail`` folds the 16,384 tail rows into the shards through
    ``refresh_index`` (tombstones plus ``insert_batch``); no deleted row
    may come back, the counts must equal the rows deleted and appended, and
-   5 unfiltered probe calls must reach recall@10 0.90 over the live rows.
+   2 unfiltered probe calls must reach recall@10 0.90 over the live rows.
 9. The serving tier.  (a) The phase-3 snapshot, opened by its id, its four
    shard graphs decoded from the Puffin file into a ``DeviceAnnIndex``
    (payload: global row numbers) and probed by ``make_probe_fn`` (k = 10,
    L = 100, oversample 2) in 10 calls of 100 of the phase-3 queries:
    recall@10 of 0.90 against phase 3's ground truth.  (b) A cold wave
    through ``ProbeMicroBatcher`` (max_batch 64, max_wait 2 ms, no cache) on
-   the refreshed index: 2,000 submissions drawn from the first 1,000 phase-3
+   the refreshed index: 1,000 submissions drawn from the first 1,000 phase-3
    queries by a Zipf law (exponent 1.1, from ``--seed``), tenants "a" and
    "b" alternating, a deadline of 10 s, one in four filtered by
    ``price < 200``, from 8 client threads with 8 submissions in flight
@@ -138,8 +145,8 @@ no result line):
    beside its bounds, device busy time, peak memory, save and restore
    seconds.  (c) ``examples/torch_train_checkpointed.py`` in-process,
    then ``python -m repro_torch.launch.train`` twice on one warehouse (the
-   second resumes from the committed step 10); run before (b), away from
-   its 40.8 GB of disk writes.  No ANN kernel runs here.
+   second resumes from the committed step 10; both run beside phase 3,
+   away from (b)'s 40.8 GB of disk writes).  No ANN kernel runs here.
 14. Sharding and the dry-runs (``models/sharding.py``, ``launch/mesh.py``,
    the mesh forms of ``make_probe_fn`` / ``make_serve_fns`` /
    ``make_train_step``, ``launch/{dryrun,probe_dryrun}.py``).  (a) Right
@@ -219,6 +226,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -261,7 +269,7 @@ QUANT = {"bf16": PEAK_BF16, "int8": PEAK_INT8}  # scan dtype -> peak operation r
 # the unfiltered build and probe of phase 3
 MAIN_KERNELS = ("rerank_distances", "gather_rerank", "kmeans_assign")
 PRICE_MAX = 10_000  # the price attribute is uniform on [0, PRICE_MAX)
-TAIL_ROWS = 65_536  # phase 5: 16 row groups of 4,096
+TAIL_ROWS = 16_384  # phase 5: 4 row groups of 4,096
 SMALL_SHARD = 4_096  # planner.EXACT_SCAN_MAX_ROWS: PQScan only up to this size
 
 # Gaussian mixture standing in for SIFT1M: 1,024 components with centers
@@ -276,11 +284,62 @@ MIX_COMPONENTS = 1024
 MIX_CENTER_SCALE = 1.0
 MIX_RANK = 8
 MIX_NOISE = 0.1
-BUILD_BATCH = 1024
+BUILD_BATCH = 2048
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Beside:
+    """Processes that need nothing of phases 3-9 (phase 10's fault demo, the
+    launchers of 11c and 13c) run one after another on a thread beside
+    phase 3, whose card is mostly idle while the host builds the graph;
+    each phase then reads its own result.  ``stop`` kills the one running."""
+
+    def __init__(self, jobs):
+        self.jobs = jobs  # [(key, argv, cwd, env)]
+        self.results = {}
+        self.ready = {key: threading.Event() for key, *_ in jobs}
+        self.lock = threading.Lock()
+        self.proc = None
+        self.stopping = False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            for key, argv, cwd, env in self.jobs:
+                t0 = time.time()
+                with self.lock:
+                    if self.stopping:
+                        break
+                    self.proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True, cwd=cwd, env=env)
+                try:
+                    out, err = self.proc.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    self.proc.kill()
+                    out, err = self.proc.communicate()
+                    err += "\nkilled after 600 s"
+                self.results[key] = (self.proc.returncode, out, err, time.time() - t0)
+                self.ready[key].set()
+        finally:  # a job that could not start leaves the rest unrun, never a reader waiting
+            for ev in self.ready.values():
+                ev.set()
+
+    def result(self, key):
+        """(returncode, stdout, stderr, seconds) of the job ``key``."""
+        self.ready[key].wait()
+        return self.results.get(key, (None, "", "did not run: a job before it failed to start, or the smoke stopped", 0.0))
+
+    def stop(self):
+        with self.lock:
+            self.stopping = True
+            proc = self.proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+        self.thread.join()
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32) -> tuple:
@@ -1067,16 +1126,19 @@ def _same_call(torch, got, want, name) -> None:
 def _unified_launch(torch, q, x, luts, codes, uniq, idx, flavor, k):
     """The launch ``ops.unified_masked_topk_dedup`` makes, with the flavor
     order and the exact-query count (which the wrapper reads from the card)
-    worked out here once."""
+    worked out here once, at the tile the autotuner gives the call."""
     from repro_torch.kernels import masked_topk as km
+    from repro_torch.kernels import ops
 
     masks = (uniq != 0).to(torch.uint8).contiguous()
     rows = idx.to(torch.int32).contiguous()
     qperm = torch.sort(flavor.to(torch.int32), stable=True).indices.to(torch.int32).contiguous()
     n_exact = q.shape[0] - int(flavor.sum())
+    tile_q = ops._tiles(None, None, x.shape[0], x.shape[1], "unified")
     return lambda: km._launch(
         "unified_masked_topk", q.shape[0], x.shape[0], k, device=q.device, queries=q, points=x,
-        luts=luts, codes=codes, mask_rows=masks, row_index=rows, qperm=qperm, n_exact=n_exact)
+        luts=luts, codes=codes, mask_rows=masks, row_index=rows, qperm=qperm, n_exact=n_exact,
+        tile_q=tile_q)
 
 
 def _quant_checks(torch, ops, q, x, plane, k, what, metrics=("l2", "ip")):
@@ -1343,9 +1405,110 @@ def _phase7_int8_rows(torch, ops, ref, q, x, price, k) -> dict:
 # -- --parent: the kernels of another checkout beside this one's ---------------
 
 # every launch name of csrc/masked_topk.cu
+# the (phase, flavor, shard rows) the main path's masked calls take at D = 128
+# (phase 6's PQ codes m = 32 land in the same D bucket): phase 4's ExactScan
+# on phase 3's 250k-row shards, phase 6's and 7's on 4,096-row shards
+MAIN_PATH_TILES = (("4", "exact", 250_000), ("6", "exact", SMALL_SHARD), ("6", "pq", SMALL_SHARD),
+                   ("6", "unified", SMALL_SHARD), ("7", "exact_bf16", SMALL_SHARD),
+                   ("7", "exact_int8", SMALL_SHARD))
+
+
+def _tile_calls(torch, ops, flavor, q, x, luts, codes, plane, k):
+    """The masked ops of ``flavor`` on one input set, as fn(tile_q): the
+    shared-mask and the dedup'd-plane forms (unified: the plane)."""
+    uniq, idx = plane
+    mask = uniq[0]
+    if flavor.startswith("exact"):
+        dt = {"exact": "f32", "exact_bf16": "bf16", "exact_int8": "int8"}[flavor]
+        return [lambda t: ops.masked_exact_topk(q, x, mask, k, dtype=dt, tile_q=t),
+                lambda t: ops.masked_exact_topk_dedup(q, x, uniq, idx, k, dtype=dt, tile_q=t)]
+    if flavor == "pq":
+        return [lambda t: ops.masked_pq_topk(luts, codes, mask, k, tile_q=t),
+                lambda t: ops.masked_pq_topk_dedup(luts, codes, uniq, idx, k, tile_q=t)]
+    fl = torch.arange(q.shape[0], device=q.device) % 2 == 1
+    return [lambda t: ops.unified_masked_topk_dedup(q, x, luts, codes, uniq, idx, fl, k, tile_q=t)]
+
+
+def phase_autotune(torch, dev, shard_n: int, seed: int):
+    """2b: the autotuner's knob.  ``autotune.sweep`` at one small point
+    (2,048 rows, D = 128) for every flavor into a temporary file (its
+    ``sweep_point`` holds each candidate's bits against the default's);
+    then every candidate tile of every masked flavor against the default
+    tile, bit for bit (dists as int32 views, ids), at phase 2's masked
+    shapes (Q = 100, D = 128, one 250k-row shard and N = 4,096; the 50 %
+    mask and the dedup'd plane of ten price masks; k = 40 and 160); last,
+    the tile the committed cache picks at each main-path shape
+    (MAIN_PATH_TILES) with its device ms beside the default's (CUDA-graph
+    replay, 100 queries)."""
+    from repro_torch.kernels import autotune, ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        picked = autotune.sweep(out_path=Path(tmp) / "autotune_cache.json", row_counts=(2048,),
+                                dims=(128,), repeat=2)
+    log(f"2b sweep at 2,048 rows, D = 128 (each candidate's bits held to the default's): {picked}")
+    rng = np.random.default_rng(seed + 7)
+    Q, D, M, KC = 100, 128, 32, 256
+    checked = 0
+    for n in (SMALL_SHARD, shard_n):
+        q, x, luts, codes, _ = _masked_case(torch, dev, rng, Q, n, D, 0.0, m=M, kc=KC)
+        price = torch.as_tensor(rng.integers(0, PRICE_MAX, size=n)).to(dev)
+        uniq = torch.stack([price < 5000] + [price < t for t in (2, 3, 4, 5, 6, 100, 325, 550, 1000)])
+        plane = (uniq, torch.as_tensor(np.arange(Q) % uniq.shape[0]).to(dev))
+        for k in (40, 160):
+            for flavor in autotune.FLAVORS[:-1]:  # gather_rerank has no knob
+                for fn in _tile_calls(torch, ops, flavor, q, x, luts, codes, plane, k):
+                    base = fn(0)
+                    for tq, _tn in autotune.FLAVOR_CANDIDATES[flavor][1:]:
+                        got = fn(tq)
+                        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                   for a, b in zip(got, base)):
+                            raise AssertionError(f"2b: {flavor} at tile_q={tq} changes the answer "
+                                                 f"(N = {n}, k = {k})")
+                        checked += 1
+    torch.cuda.synchronize()
+    log(f"2b every candidate tile of every masked flavor gives the default's bits: {checked} calls "
+        f"at Q = {Q}, N = {SMALL_SHARD} and {shard_n}, k = 40 and 160")
+    autotune.clear_cache()
+    lines = []
+    for phase, flavor, n in MAIN_PATH_TILES:
+        tiles = autotune.get_tiles(n, M if flavor == "pq" else D, flavor)
+        work = autotune._workload(flavor, n, D, seed=seed, device=dev, q_n=Q, m_sub=M)
+        base = autotune._time_ms(lambda: autotune._dispatch(flavor, work, *autotune.DEFAULT_TILES))
+        t = base if tiles == autotune.DEFAULT_TILES else autotune._time_ms(
+            lambda: autotune._dispatch(flavor, work, *tiles))
+        lines.append(f"phase {phase} {flavor} N={n}: {tiles} {t:.4f} ms (default {base:.4f} ms)")
+    log("2b the committed cache's tiles at the main path's shapes, device ms by graph replay, "
+        "Q = 100, k = 32, PQ m = 32: " + "; ".join(lines))
+
+
 MASKED_NAMES = tuple(n for n, (src, _) in KERNELS.items() if src == MASKED_CU)
 # the sources --parent builds from the other checkout
 PARENT_SOURCES = ("masked_topk", "kmeans_assign", "rerank", "pq_scan")
+
+
+class _NoTileKnob:
+    """A parent's ``masked_topk.cu`` from before the query-tile knob: its
+    ``masked_topk`` takes no ``tile_q``, so a call drops it and the parent
+    launches by its own rule (what ``tile_q = 0`` asks of this checkout's;
+    a tile never changes a bit)."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.masked_topk.argtypes = [vp] * 7 + [ci] * 9 + [cf] * 2 + [vp] * 4 + [vp]
+        lib.masked_topk.restype = ci
+        lib.masked_topk_chunk_rows.argtypes = []
+        lib.masked_topk_chunk_rows.restype = ci
+        lib.masked_topk_adc_tile.argtypes = [ci, ci]
+        lib.masked_topk_adc_tile.restype = ci
+        self._lib, self._typed = lib, True
+
+    def masked_topk(self, *args):
+        return self._lib.masked_topk(*args[:16], *args[17:])  # args[16] is tile_q
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def _parent_libs(parent: str) -> dict:
@@ -1372,6 +1535,8 @@ def _parent_libs(parent: str) -> dict:
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        if name == "masked_topk" and "int kind, int tile_q" not in src.read_text():
+            lib = _NoTileKnob(lib)
         if name == "rerank" and not hasattr(lib, "rerank_tile"):
             # a rerank.cu from before the two tiles: its launches are
             # labelled by this checkout's tile rule
@@ -1618,10 +1783,25 @@ def phase_parent(torch, dev, shard_n: int, seed: int, parent: str):
     and host-inclusive times) and the k sweeps (exact and ADC) are timed in
     turns (parent, change, change, parent) on this card.  Returns the
     parent's libraries by source name."""
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, autotune
 
     old_libs = _parent_libs(parent)
     libs = {name: _build.load(name) for name in PARENT_SOURCES}
+    # this checkout's masked launches at tile_q = 0 (the launch's own rule,
+    # as the parent has no other): the autotuner sees no fixture here
+    cache_path = autotune._CACHE_PATH
+    autotune._CACHE_PATH = Path(tempfile.gettempdir()) / "no-autotune-cache.json"
+    autotune.clear_cache()
+    try:
+        return _phase_parent(torch, dev, shard_n, seed, old_libs, libs)
+    finally:
+        autotune._CACHE_PATH = cache_path
+        autotune.clear_cache()
+
+
+def _phase_parent(torch, dev, shard_n: int, seed: int, old_libs: dict, libs: dict):
+    from repro_torch.kernels import _build, ops, ref
+
     _parent_rerank_kmeans(torch, dev, shard_n, seed, libs, old_libs)
     _parent_rerank_pq(torch, dev, shard_n, seed, libs, old_libs)
     new, old = libs["masked_topk"], old_libs["masked_topk"]
@@ -1925,8 +2105,8 @@ def phase_main_path(torch, n: int, n_queries: int, seed: int, workdir: str):
     table.append_vectors(X, num_files=16, rows_per_group=rows_per_group,
                          attributes={"price": price[:n]})
     log(f"table: 16 files written in {time.time() - t0:.1f} s")
-    # build_batch 1024 (IndexConfig's default is 128): an existing user
-    # setting that cuts a 250k-point shard's build to ~245 batches a pass
+    # build_batch 2048 (IndexConfig's default is 128): an existing user
+    # setting that cuts a 250k-point shard's build to ~123 batches a pass
     cfg = IndexConfig(name="idx", R=64, L=100, alpha=1.2, pq_m=32, pq_nbits=8,
                       build_batch=BUILD_BATCH)
 
@@ -2481,7 +2661,7 @@ def phase_refresh(torch, ctx, n_calls: int):
 # -- phase 9 ----------------------------------------------------------------------
 
 SERVE_POOL = 1_000  # phase 9's queries: the first 1,000 of phase 3
-SERVE_SUBMISSIONS = 2_000  # per wave
+SERVE_SUBMISSIONS = 1_000  # per wave
 SERVE_CLIENTS = 8  # client threads
 SERVE_WINDOW = 8  # submissions a client keeps in flight
 SERVE_ZIPF = 1.1  # exponent of the law that draws a submission's query
@@ -2834,12 +3014,17 @@ def _example(name: str):
     return mod
 
 
-def phase_examples(torch):
+def fault_demo_job():
+    return ("fault_demo", [sys.executable, str(HERE / "examples" / "torch_fault_tolerance_demo.py")],
+            None, None)
+
+
+def phase_examples(torch, beside):
     """10: the port's three lifecycle examples on the card, in-process
     through ``main()``, each with the launch counts set to 0 before it and
     read after, every kernel call held against its plain version; then the
-    fault-tolerance demo once more as a process of its own, which must exit
-    0 with its straggler's attempt still asleep."""
+    fault-tolerance demo once more as a process of its own (run beside
+    phase 3), which must exit 0 with its straggler's attempt still asleep."""
     from repro_torch.kernels import _build
 
     launches: dict = {}
@@ -2877,14 +3062,11 @@ def phase_examples(torch):
         raise AssertionError(f"fault demo: {d['shards']} shards / {d['vectors']} vectors, "
                              f"{d['dead_result_sets']} result sets with ex-0 down")
     _need(launches, MAIN_KERNELS, "phase 10")
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, str(HERE / "examples" / "torch_fault_tolerance_demo.py")],
-                          capture_output=True, text=True, timeout=600)
-    sub_s = time.time() - t0
-    log(f"phase 10 fault demo as a process: rc {proc.returncode} in {sub_s:.2f} s; "
-        f"{proc.stdout.strip().splitlines()[-1:] }")
-    if proc.returncode != 0 or "terminate called" in proc.stderr:
-        raise AssertionError(f"fault demo process: rc {proc.returncode}, stderr {proc.stderr[-2000:]}")
+    rc, out, err, sub_s = beside.result("fault_demo")
+    log(f"phase 10 fault demo as a process (beside phase 3): rc {rc} in {sub_s:.2f} s; "
+        f"{out.strip().splitlines()[-1:]}")
+    if rc != 0 or "terminate called" in err:
+        raise AssertionError(f"fault demo process: rc {rc}, stderr {err[-2000:]}")
     return launches, dict(seconds={n: facts[n]["seconds"] for n in EXAMPLES}, process_s=sub_s,
                           recall=rec, bands=bands)
 
@@ -3228,21 +3410,28 @@ def phase_lm_example(torch):
     return launches, facts
 
 
-def phase_lm_launcher():
-    """11c: the serving launcher as a process of its own, at its reduced
-    default: ``python -m repro_torch.launch.serve --arch chatglm3-6b
-    --retrieval`` must exit 0."""
+LM_LAUNCHER = ["-m", "repro_torch.launch.serve", "--arch", "chatglm3-6b", "--retrieval"]
+
+
+def _src_env() -> dict:
     import os
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "chatglm3-6b", "--retrieval"]
-    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(HERE), env=env)
-    secs = time.time() - t0
-    log(f"phase 11c {' '.join(cmd[1:])}: rc {proc.returncode} in {secs:.2f} s; "
-        f"{proc.stdout.strip().splitlines()}")
-    if proc.returncode != 0:
-        raise AssertionError(f"launcher: rc {proc.returncode}, stderr {proc.stderr[-2000:]}")
+    return dict(os.environ, PYTHONPATH=str(HERE / "src"))
+
+
+def lm_launcher_job():
+    return ("serve_launcher", [sys.executable, *LM_LAUNCHER], str(HERE), _src_env())
+
+
+def phase_lm_launcher(beside):
+    """11c: the serving launcher as a process of its own (run beside phase
+    3), at its reduced default: ``python -m repro_torch.launch.serve --arch
+    chatglm3-6b --retrieval`` must exit 0."""
+    rc, out, err, secs = beside.result("serve_launcher")
+    log(f"phase 11c {' '.join(LM_LAUNCHER)} (beside phase 3): rc {rc} in {secs:.2f} s; "
+        f"{out.strip().splitlines()}")
+    if rc != 0:
+        raise AssertionError(f"launcher: rc {rc}, stderr {err[-2000:]}")
     return dict(seconds=secs)
 
 
@@ -3861,28 +4050,26 @@ def phase_train_example(torch):
     return launches
 
 
-def phase_train_launcher(workdir: str):
-    """13c (2): ``python -m repro_torch.launch.train --arch qwen2.5-3b --steps
-    12 --ckpt-every 5 --warehouse DIR`` as a process, twice on one
-    warehouse: both exit 0 and the second prints "resumed from committed
-    step 10"."""
-    import os
-
+def train_launcher_jobs(workdir: str):
     warehouse = tempfile.mkdtemp(prefix="train_launcher_", dir=workdir)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--steps", "12",
            "--ckpt-every", "5", "--warehouse", warehouse]
-    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    return [(f"train_launcher_{run}", cmd, str(HERE), _src_env()) for run in (1, 2)]
+
+
+def phase_train_launcher(beside):
+    """13c (2): ``python -m repro_torch.launch.train --arch qwen2.5-3b --steps
+    12 --ckpt-every 5 --warehouse DIR`` as a process, twice on one
+    warehouse (run beside phase 3): both exit 0 and the second prints
+    "resumed from committed step 10"."""
     out = []
     for run in (1, 2):
-        t0 = time.time()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(HERE), env=env)
-        secs = time.time() - t0
-        log(f"phase 13c {' '.join(cmd[1:6])} ... run {run}: rc {proc.returncode} in {secs:.2f} s; "
-            f"{proc.stdout.strip().splitlines()}")
-        if proc.returncode != 0:
-            raise AssertionError(f"train launcher run {run}: rc {proc.returncode}, "
-                                 f"stderr {proc.stderr[-2000:]}")
-        out.append((secs, proc.stdout))
+        rc, stdout, err, secs = beside.result(f"train_launcher_{run}")
+        log(f"phase 13c -m repro_torch.launch.train --arch {TRAIN_ARCH} --steps ... run {run} (beside "
+            f"phase 3): rc {rc} in {secs:.2f} s; {stdout.strip().splitlines()}")
+        if rc != 0:
+            raise AssertionError(f"train launcher run {run}: rc {rc}, stderr {err[-2000:]}")
+        out.append((secs, stdout))
     if "resumed from committed step 10" not in out[1][1]:
         raise AssertionError(f"train launcher did not resume: {out[1][1]}")
     return dict(seconds=[s for s, _ in out])
@@ -4101,9 +4288,9 @@ def phase_lm_dry_runs(dry_runs: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors (SIFT1M: 1,000,000)")
-    ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--queries", type=int, default=2_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--filtered-calls", type=int, default=5,
+    ap.add_argument("--filtered-calls", type=int, default=2,
                     help="probe calls of 100 queries per filtered row (phases 4, 5, 7 and 8)")
     ap.add_argument("--small-n", type=int, default=131_072,
                     help="rows of the small-shard catalog of phase 6")
@@ -4140,6 +4327,7 @@ def main() -> int:
     rows.update(timed("2 masked kernels", phase_masked_kernels, torch, dev, args.n // 4, args.seed))
     rows.update(timed("2 quantized scans + pq_scan", phase_quant_kernels, torch, dev, args.n // 4,
                       args.seed))
+    timed("2b autotune", phase_autotune, torch, dev, args.n // 4, args.seed)
     shadow = None
     if args.parent:
         old_libs = timed("2 parent vs change", phase_parent, torch, dev, args.n // 4, args.seed, args.parent)
@@ -4150,9 +4338,10 @@ def main() -> int:
         log("--only-kernels: phases 1-2 passed; the main path did not run")
         return 0
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-    dry_runs = {}
+    dry_runs, beside = {}, None
     try:
         dry_runs = start_dry_runs(workdir)
+        beside = Beside([lm_launcher_job(), *train_launcher_jobs(workdir), fault_demo_job()])
         launches, main, ctx = timed(
             "3 main path", phase_main_path, torch, args.n, args.queries, args.seed, workdir
         )
@@ -4170,7 +4359,7 @@ def main() -> int:
         timed("9a device probe", phase_device_probe, torch, ctx)
         got, _stats = timed("9b-e serving tier", phase_serving, torch, ctx, args.seed)
         per_phase["9"] = got
-        got, _stats = timed("10 examples", phase_examples, torch)
+        got, _stats = timed("10 examples", phase_examples, torch, beside)
         per_phase["10"] = got
         got, facts11 = timed("11a LM serving", phase_lm_serving, torch, dev, args.seed, workdir)
         per_phase["11a"] = got
@@ -4179,19 +4368,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         got, _facts = timed("11b serve_retrieval example", phase_lm_example, torch)
         per_phase["11b"] = got
-        timed("11c serve launcher", phase_lm_launcher)
+        timed("11c serve launcher", phase_lm_launcher, beside)
         got, _facts = timed("12 LM families", phase_lm_families, torch, dev, args.seed, workdir)
         per_phase["12"] = got
         del ctx  # phases 3-9's deployment: the card's memory goes to phase 13b
         torch.cuda.empty_cache()
         timed("13a train parity", phase_train_parity, torch, dev, args.seed)
         per_phase["13c"] = timed("13c train example", phase_train_example, torch)
-        timed("13c train launcher", phase_train_launcher, workdir)
+        timed("13c train launcher", phase_train_launcher, beside)
         got, _facts = timed("13b train qwen2.5-3b", phase_train_full, torch, dev, args.seed, workdir, smi)
         per_phase["13b"] = got
         timed("14c probe share", phase_probe_share, torch, dev, args.seed, dry_runs, smi)
         timed("14d LM dry-runs", phase_lm_dry_runs, dry_runs)
     finally:
+        if beside is not None:
+            beside.stop()
         for _cmd, proc, _t0, _out in dry_runs.values():
             if proc.poll() is None:
                 proc.kill()

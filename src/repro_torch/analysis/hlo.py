@@ -19,7 +19,8 @@ equals ``raw_bytes``; the field stays for the reference's row schema.
 ``by_axis`` splits the global bytes by the mesh axes of each group, which is
 what the roofline charges to NVLink or InfiniBand; ``by_op`` by the aten op
 an entered :class:`~repro_torch.analysis.flops.FlopCounter` was dispatching
-when DTensor issued them (``direct`` for one the traced code issued).
+when DTensor issued them (``direct`` for one the traced code issued, or a
+re-layout it asked for: ``sharding.pinned``, ``sharding.vocab_rows``).
 
 On a mesh of ``cpu`` devices DTensor makes a shard-to-shard redistribution
 an all-gather plus a local chunk (no all-to-all on a CPU group), so such a
@@ -56,6 +57,9 @@ COLLECTIVE_OPS = {
     _fc.all_to_all_single: ("all-to-all", None),
     _fc.broadcast: ("broadcast", None),
 }
+
+
+_COLLECTIVE_NAMES = {p.__name__ for p in COLLECTIVE_OPS}
 
 
 def _shape_bytes(shape, dtype: torch.dtype) -> int:
@@ -131,7 +135,9 @@ class CollectiveCounter(TorchDispatchMode):
         s.by_kind[kind] = s.by_kind.get(kind, 0) + b * group
         axis = self._axes.get(_ranks(pg), str(group_name))
         s.by_axis[axis] = s.by_axis.get(axis, 0) + b * group
-        op = current_op() or "direct"
+        op = current_op()
+        if op is None or op.split(".")[0] in _COLLECTIVE_NAMES:
+            op = "direct"  # issued outside an aten op's dispatch (a re-layout of the model code's)
         s.by_op[op] = s.by_op.get(op, 0) + b * group
         s.ops += int(n)
 

@@ -100,7 +100,11 @@
 // feature order, so a score's bits do not depend on the tile shape.  A last
 // query tile of 16 or fewer queries runs a 4, 2 or 1 x 8 block (Q = 100:
 // 100 query slots scored, not 128).  A chunk no query of the tile may see
-// writes its sentinels and nothing else.
+// writes its sentinels and nothing else.  The launch's tile_q (the
+// autotuner's knob, kernels/autotune.py) can ask for a tile of 16 or 8
+// queries, the same layout with a 4 x 8 or 2 x 8 block a thread: more
+// blocks where the queries are few (phase 6's unified shape: 16 blocks on
+// 132 SMs at 32 queries, 56 at 8).
 //
 // Tensor-core tiles, bf16 (rows 5', 7') and int8 (rows 4, 6; replaces
 // _masked_exact_q_kernel, masked_topk.py:289 and :357): one template
@@ -122,7 +126,8 @@
 // order; the score is exact_score(q2, acc * (q_scale * x_scale), x2), as
 // the SIMT tile it replaces computed it, bit for bit.  The tile's query
 // count (16, 8 or 4) is the largest that still gives every SM a block: at
-// N = 4,096 (8 chunks) and Q = 100, 4 queries a tile and 200 blocks.  A
+// N = 4,096 (8 chunks) and Q = 100, 4 queries a tile and 200 blocks (an
+// explicit tile_q of 16, 8 or 4 overrides the rule).  A
 // dead chunk writes its sentinels, as in the f32 tile.  Bound: int8 reads
 // a quarter of f32's bytes and its operations take microseconds on the
 // tensor cores, so what is left is the select (latency-bound: two blocks
@@ -176,7 +181,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CN = 512;  // rows per chunk
-constexpr int TQ = 32;   // queries per f32 tile; the other tiles take fewer
+constexpr int TQ = 32;   // queries a tile at most: the f32 tile takes 32, 16 or 8, the others fewer
 constexpr int UNIT = 64;             // rows a skip unit
 constexpr int UNITS = CN / UNIT;     // skip units a chunk
 constexpr int MASK_BYTES = CN / 8;   // one mask row's bits over a chunk
@@ -188,18 +193,23 @@ constexpr int CHUNK_SMEM = MAX_SMEM - 4096;  // every pass-1 kernel's ceiling (s
 static_assert((CN & (CN - 1)) == 0 && SPT * 32 == CN, "the chunk sort holds CN keys, a power of two");
 static_assert(MERGE_WARPS <= 32, "the second merge level gives each stream one lane");
 
-// f32 tile: an 8 x 8 register block a thread (8 queries x 8 rows), a warp
-// 32 queries x one 64-row unit, the block the whole chunk; KS features of
-// each staged row a ring stage
-constexpr int F_TM = 8, F_TN = 8;
+// f32 tile of FQ queries (32, 16 or 8): an (FQ / 4) x 8 register block a
+// thread (FQ / 4 queries x 8 rows), a warp FQ queries x one 64-row unit,
+// the block the whole chunk; KS features of each staged row a ring stage
+constexpr int F_TN = 8;
 constexpr int KS = 16;
-constexpr int RING = 2;                  // stages of the f32 and bf16 rings
-constexpr int F_STAGE = (TQ + CN) * KS;  // floats of one ring stage: query rows, then point rows
-// the ring, and over it once it is spent the (TQ, CN) scores; the row
-// norms; the mask bits
-constexpr int F_RING = RING * F_STAGE > TQ * CN ? RING * F_STAGE : TQ * CN;
-constexpr int F_SMEM = (F_RING + CN) * 4 + TQ * MASK_BYTES;
-static_assert((TQ / F_TM) * (UNIT / F_TN) == 32, "a warp: 32 queries x one 64-row unit");
+constexpr int RING = 2;  // stages of the f32 and bf16 rings
+template <int FQ>
+struct F32Tile {
+  static constexpr int TM = FQ / 4;               // queries a thread
+  static constexpr int STAGE = (FQ + CN) * KS;    // floats of one ring stage: query rows, then point rows
+  // the ring, and over it once it is spent the (FQ, CN) scores; then the
+  // row norms and the mask bits
+  static constexpr int RING_FLOATS = RING * STAGE > FQ * CN ? RING * STAGE : FQ * CN;
+  static constexpr int SMEM = (RING_FLOATS + CN) * 4 + FQ * MASK_BYTES;
+  static_assert((FQ / TM) * (UNIT / F_TN) == 32, "a warp: FQ queries x one 64-row unit, 32 lanes");
+  static_assert(FQ <= TQ, "the tile's queries fit the tile arrays");
+};
 // tensor-core tiles (bf16, int8): the whole chunk staged, 32 bytes of each
 // row a stage (16 bf16 or 32 int8 features), warp w on rows [64 w, 64 w + 64)
 constexpr int B_TQ = 16;  // queries a tile at most (the launch takes 16, 8 or 4)
@@ -226,7 +236,7 @@ constexpr int ADC_BUDGET = 110 * 1024;
 __host__ __device__ constexpr size_t adc_smem(int tq, int nb, int M, int K) {
   return ((size_t)tq * M * K + 3) / 4 * 16 + (size_t)nb * (tq * CN * 4 + CN * 2 + tq * MASK_BYTES);
 }
-static_assert(F_SMEM <= CHUNK_SMEM && tc_smem(B_TQ) <= CHUNK_SMEM && ADC_BUDGET <= CHUNK_SMEM,
+static_assert(F32Tile<TQ>::SMEM <= CHUNK_SMEM && tc_smem(B_TQ) <= CHUNK_SMEM && ADC_BUDGET <= CHUNK_SMEM,
               "one fixed ceiling covers every tile");
 static_assert(ADC_TQ <= TQ, "an ADC tile's queries fit the tile arrays");
 
@@ -572,10 +582,11 @@ __device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& 
 // The f32 tile's multiply-adds over one staged stage: lane (tx, ty) =
 // (lane & 7, lane >> 3) of warp w holds queries ty + 4 i (i < TMA) x rows
 // 64 w + tx + 8 j (j < 8), feature pairs read by 64-bit shared loads in
-// order.  TMA < 8 when the tile's queries end early (the last tile).
-template <int TMA>
+// order.  TMA < TM when the tile's queries end early (the last tile).  A
+// query's sums are the same chains whatever TMA and TM are.
+template <int TMA, int TM>
 __device__ __forceinline__ void f32_multiply(const float* Qs, const float* Xs, int tx, int ty, int w,
-                                             float (&acc)[F_TM][F_TN]) {
+                                             float (&acc)[TM][F_TN]) {
   const float* qr = Qs + ty * KS;
   const float* xr = Xs + (UNIT * w + tx) * KS;
   const int sx = (tx >> 1) & 3, sq = (ty >> 1) & 1;  // the swizzles of the rows this lane reads
@@ -600,18 +611,21 @@ __device__ __forceinline__ void f32_multiply(const float* Qs, const float* Xs, i
   }
 }
 
-// f32 tile (see the header).  Dynamic shared memory: the ring (the
-// (TQ, CN) scores over it once it is spent), the chunk's row norms, the
-// mask bits.
+// f32 tile of FQ queries (see the header).  Dynamic shared memory: the ring
+// (the (FQ, CN) scores over it once it is spent), the chunk's row norms,
+// the mask bits.
+template <int FQ>
 __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
-  float* ringb = smem;                          // [RING][TQ + CN][KS]
-  float* dist = smem;                           // [TQ][CN], once the ring is spent
-  float* x2s = smem + F_RING;                   // [CN]
-  uint8_t* bits = reinterpret_cast<uint8_t*>(x2s + CN);  // [TQ][MASK_BYTES]
+  using F = F32Tile<FQ>;
+  constexpr int TM = F::TM;
+  float* ringb = smem;                          // [RING][FQ + CN][KS]
+  float* dist = smem;                           // [FQ][CN], once the ring is spent
+  float* x2s = smem + F::RING_FLOATS;           // [CN]
+  uint8_t* bits = reinterpret_cast<uint8_t*>(x2s + CN);  // [FQ][MASK_BYTES]
   __shared__ TileQueries tq;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int first = tile * TQ;
-  const int nq = min(TQ, a.n_exact - first);
+  const int first = tile * FQ;
+  const int nq = min(FQ, a.n_exact - first);
   const int row0 = chunk * CN;
   const int rows = min(CN, a.N - row0);
   tile_setup(a, tq, bits, first, nq, row0, rows);
@@ -630,23 +644,23 @@ __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
   // point rows (tid >> 1) + 128 i; rows past N or in a unit no query may
   // see are zero-filled (row index -1)
   const int h = tid & 3;
-  const int qrow = tid < 4 * TQ && (tid >> 2) < nq ? tq.qid[tid >> 2] : -1;
+  const int qrow = tid < 4 * FQ && (tid >> 2) < nq ? tq.qid[tid >> 2] : -1;
   const bool wlive = tq.live[warp];
   const bool nlive[2] = {tq.live[tid / UNIT], tq.live[(tid + THREADS) / UNIT]};
   float xn[2] = {0.f, 0.f};  // |x|^2 of rows tid and tid + 256
   float qn = 0.f;            // |q|^2 of query tid (tid < nq)
   const int tma = nq > 16 ? 8 : nq > 8 ? 4 : nq > 4 ? 2 : 1;
-  float acc[F_TM][F_TN];
+  float acc[TM][F_TN];
 #pragma unroll
-  for (int i = 0; i < F_TM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
   auto stage = [&](int buf, int k0) {
-    float* Qs = ringb + buf * F_STAGE;
-    float* Xs = Qs + TQ * KS;
+    float* Qs = ringb + buf * F::STAGE;
+    float* Xs = Qs + FQ * KS;
     if (a.vec) {
       const bool in_d = k0 + 4 * h < D;
-      if (tid < 4 * TQ) {
+      if (tid < 4 * FQ) {
         const bool ok = qrow >= 0 && in_d;
         cp_async16(Qs + q_swz(tid >> 2, h), ok ? qb + (size_t)qrow * D + k0 + 4 * h : qb, ok ? 16 : 0);
       }
@@ -657,15 +671,15 @@ __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
         cp_async16(Xs + f_swz((tid >> 2) + UNIT * i, h), ok ? xb + (size_t)r * D + k0 + 4 * h : xb, ok ? 16 : 0);
       }
     } else {
-      for (int e = tid; e < (TQ + CN) * KS; e += THREADS) {
+      for (int e = tid; e < (FQ + CN) * KS; e += THREADS) {
         const int r = e / KS, f = e % KS, k = k0 + f;
         const float* src = nullptr;
         float* dst;
-        if (r < TQ) {
+        if (r < FQ) {
           dst = Qs + q_swz(r, f >> 2) + (f & 3);
           if (r < nq && k < D) src = qb + (size_t)tq.qid[r] * D + k;
         } else {
-          const int rr = r - TQ, g = row0 + rr;
+          const int rr = r - FQ, g = row0 + rr;
           dst = Xs + f_swz(rr, f >> 2) + (f & 3);
           if (tq.live[rr / UNIT] && g < a.N && k < D) src = xb + (size_t)g * D + k;
         }
@@ -675,8 +689,8 @@ __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
     cp_async_commit();
   };
   ring<KS>(D, stage, [&](int buf) {
-    const float* Qs = ringb + buf * F_STAGE;
-    const float* Xs = Qs + TQ * KS;
+    const float* Qs = ringb + buf * F::STAGE;
+    const float* Xs = Qs + FQ * KS;
     // norms: one fused chain a row in feature order (zeros past D leave it)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -696,10 +710,14 @@ __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
       }
     }
     if (!wlive) return;
-    if (tma == 8) f32_multiply<8>(Qs, Xs, tx, ty, warp, acc);
-    else if (tma == 4) f32_multiply<4>(Qs, Xs, tx, ty, warp, acc);
-    else if (tma == 2) f32_multiply<2>(Qs, Xs, tx, ty, warp, acc);
-    else f32_multiply<1>(Qs, Xs, tx, ty, warp, acc);
+    if constexpr (TM >= 8) {
+      if (tma == 8) { f32_multiply<8, TM>(Qs, Xs, tx, ty, warp, acc); return; }
+    }
+    if constexpr (TM >= 4) {
+      if (tma == 4) { f32_multiply<4, TM>(Qs, Xs, tx, ty, warp, acc); return; }
+    }
+    if (tma == 2) f32_multiply<2, TM>(Qs, Xs, tx, ty, warp, acc);
+    else f32_multiply<1, TM>(Qs, Xs, tx, ty, warp, acc);
   });
   x2s[tid] = xn[0];
   x2s[tid + THREADS] = xn[1];
@@ -707,7 +725,7 @@ __device__ void f32_tile(const Args& a, float* smem, int tile, int chunk) {
   __syncthreads();
   // masked cells (every cell of a unit the warp skipped) are +inf
 #pragma unroll
-  for (int i = 0; i < F_TM; ++i) {
+  for (int i = 0; i < TM; ++i) {
     const int q = ty + 4 * i;
     if (q >= nq) continue;
     const uint64_t mb = unit_bits(tq, bits, q, warp) >> tx;
@@ -1225,7 +1243,8 @@ __device__ void adc_block(const Args& a, float* smem, int blk) {
   }
 }
 
-// Pass 1.  KIND is the exact flavor's element kind; launches with ADC
+// Pass 1.  KIND is the exact flavor's element kind (FQ the f32 tile's
+// queries); launches with ADC
 // queries (f32 only) take the ADC form: the exact tiles at blockIdx.x <
 // tiles_exact (chunk blockIdx.y), then cols_adc columns of ADC blocks that
 // walk the (tile, batch) items, so a unified call's two flavors share one
@@ -1235,13 +1254,13 @@ __device__ void adc_block(const Args& a, float* smem, int blk) {
 // spills), and the ADC footprint (ADC_BUDGET) leaves the unified launch's
 // f32 tiles their two.  ptxas (-Xptxas -v, CUDA 12.8): 128 registers and no
 // spill in each template (PERF.md §6).
-template <int KIND, bool ADC>
+template <int KIND, bool ADC, int FQ = TQ>
 __global__ void __launch_bounds__(THREADS, ADC ? ADC_BLOCKS : KIND == F32 ? F32_BLOCKS : TC_BLOCKS)
 chunk_topk_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x;
   if (tile < a.tiles_exact) {
-    if constexpr (KIND == F32) f32_tile(a, smem, tile, blockIdx.y);
+    if constexpr (KIND == F32) f32_tile<FQ>(a, smem, tile, blockIdx.y);
     else tc_tile<KIND>(a, smem, tile, blockIdx.y);
   } else if constexpr (ADC) {
     adc_block(a, smem, blockIdx.y * a.cols_adc + tile - a.tiles_exact);
@@ -1354,16 +1373,25 @@ int masked_topk_adc_tile(int M, int K) {
 // Masked top-k over Q queries.  qperm[0, n_exact) score exact (q, x), the
 // rest ADC (luts, codes); for the exact-only and ADC-only wrappers n_exact is
 // Q or 0.  kind is the element kind of q and x (0 f32, 1 bf16, 2 int8 with
-// its q_scale and x_scale; ADC queries only with f32).  part_d / part_i are
-// (Q, chunks, kc) scratch with chunks = ceil(N / CN) and kc = min(k, CN);
-// out is (Q, k).  Returns a CUDA error code.
+// its q_scale and x_scale; ADC queries only with f32).  tile_q is the query
+// tile, 0 for the launch's own rule: the f32 tile takes 32, 16 or 8, the
+// bf16 / int8 tile 16, 8 or 4 (skipping the SM-count rule), and the ADC
+// tile min(tile_q, masked_topk_adc_tile(M, K)), a power of two.  A tile
+// changes the grid, never a score: each query's sums are the same chains
+// whichever queries share its tile.  part_d / part_i are (Q, chunks, kc)
+// scratch with chunks = ceil(N / CN) and kc = min(k, CN); out is (Q, k).
+// Returns a CUDA error code.
 int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* codes,
                 const uint8_t* mask, const int* mask_row, const int* qperm, int Q, int N,
-                int D, int M, int K, int metric, int n_exact, int k, int kind, float q_scale,
-                float x_scale, float* part_d, int* part_i, float* out_d, int* out_i,
-                cudaStream_t stream) {
+                int D, int M, int K, int metric, int n_exact, int k, int kind, int tile_q,
+                float q_scale, float x_scale, float* part_d, int* part_i, float* out_d,
+                int* out_i, cudaStream_t stream) {
   if (Q <= 0 || N <= 0 || k <= 0) return 0;
-  if (kind < F32 || kind > INT8 || (kind != F32 && n_exact != Q))
+  if (kind < F32 || kind > INT8 || (kind != F32 && n_exact != Q) || tile_q < 0 ||
+      (tile_q & (tile_q - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_exact > 0 && tile_q > 0 &&
+      (kind == F32 ? tile_q < 8 || tile_q > TQ : tile_q < 4 || tile_q > B_TQ))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q_scale = q_scale; a.x_scale = x_scale;
@@ -1383,10 +1411,11 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // bf16 / int8 queries a tile: the largest of 16, 8, 4 that still gives
-  // every SM a block (N = 4,096, Q = 100: 4, 200 blocks)
-  a.tq_exact = kind == F32 ? TQ : B_TQ;
-  if (kind != F32)
+  // bf16 / int8 queries a tile, without an explicit tile: the largest of
+  // 16, 8, 4 that still gives every SM a block (N = 4,096, Q = 100: 4, 200
+  // blocks); f32: 32
+  a.tq_exact = tile_q > 0 ? tile_q : kind == F32 ? TQ : B_TQ;
+  if (kind != F32 && tile_q == 0)
     while (a.tq_exact > 4 && (long long)((n_exact + a.tq_exact - 1) / a.tq_exact) * a.chunks < sms)
       a.tq_exact /= 2;
   a.tiles_exact = (n_exact + a.tq_exact - 1) / a.tq_exact;
@@ -1394,13 +1423,20 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   // The ceiling is one value per process and executors launch from several
   // threads, so every call sets the same fixed ceilings: a launch's own size
   // never lowers another thread's between its set and its launch.
-  void (*kern)(Args) = n_adc > 0 ? chunk_topk_kernel<F32, true>
-                       : kind == F32 ? chunk_topk_kernel<F32, false>
-                       : kind == BF16 ? chunk_topk_kernel<BF16, false> : chunk_topk_kernel<INT8, false>;
+  const int fq = a.tq_exact;
+  void (*kern)(Args) =
+      kind == BF16 ? chunk_topk_kernel<BF16, false>
+      : kind == INT8 ? chunk_topk_kernel<INT8, false>
+      : n_adc > 0 ? (fq == 8 ? chunk_topk_kernel<F32, true, 8> : fq == 16 ? chunk_topk_kernel<F32, true, 16>
+                                                               : chunk_topk_kernel<F32, true, 32>)
+                  : (fq == 8 ? chunk_topk_kernel<F32, false, 8> : fq == 16 ? chunk_topk_kernel<F32, false, 16>
+                                                                : chunk_topk_kernel<F32, false, 32>);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, CHUNK_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (a.chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = a.tiles_exact == 0 ? 0 : kind == F32 ? (size_t)F_SMEM : (size_t)tc_smem(a.tq_exact);
+  size_t smem = a.tiles_exact == 0 ? 0
+                : kind != F32 ? (size_t)tc_smem(a.tq_exact)
+                : fq == 8 ? (size_t)F32Tile<8>::SMEM : fq == 16 ? (size_t)F32Tile<16>::SMEM : (size_t)F32Tile<32>::SMEM;
   unsigned gx = a.tiles_exact, gy = a.chunks;
   a.tq_adc = a.w_adc = a.b_adc = 1;
   a.tiles_adc = a.batches_adc = a.blocks_adc = a.cols_adc = a.code_vecs = 0;
@@ -1408,6 +1444,7 @@ int masked_topk(const void* q, const void* x, const float* luts, const uint8_t* 
   if (n_adc > 0) {
     a.tq_adc = masked_topk_adc_tile(M, K);
     if (a.tq_adc <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (tile_q > 0 && tile_q < a.tq_adc) a.tq_adc = tile_q;
     a.w_adc = a.tq_adc < 2 ? 1 : 2;
     a.lut_vec = (M * K) % 4 == 0 && reinterpret_cast<uintptr_t>(luts) % 16 == 0;
     a.code_vecs = M % 16 == 0 && M <= 64 && reinterpret_cast<uintptr_t>(codes) % 16 == 0 ? M / 16 : 0;

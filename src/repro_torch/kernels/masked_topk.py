@@ -19,6 +19,10 @@ A mask is bytes: ``mask_rows`` (U, N) uint8 (nonzero = the row may win) and
 one row shared by every query.  Outputs are (dists (Q, k) f32, ids (Q, k)
 int32), ascending, ties to the lowest id, (+inf, -1) past the passing rows.
 
+``tile_q`` picks the launch's query tile (0: the launch's own rule, the
+only choice before the autotuner); :data:`QUERY_TILES` lists what each
+flavor takes.  It changes the grid, never a score.
+
 Each wrapper takes CUDA tensors only and raises for any other; the choice
 between a kernel and its plain version (``kernels/ref.py``) is made in
 ``kernels/ops.py``.  Launch counts: ``masked_exact_topk`` /
@@ -42,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("masked_topk")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.masked_topk.argtypes = [vp] * 7 + [ci] * 9 + [cf] * 2 + [vp] * 4 + [vp]
+        lib.masked_topk.argtypes = [vp] * 7 + [ci] * 10 + [cf] * 2 + [vp] * 4 + [vp]
         lib.masked_topk.restype = ci
         lib.masked_topk_chunk_rows.argtypes = []
         lib.masked_topk_chunk_rows.restype = ci
@@ -50,6 +54,30 @@ def _lib() -> ctypes.CDLL:
         lib.masked_topk_adc_tile.restype = ci
         lib._typed = True
     return lib
+
+
+# the query tiles each flavor's launch takes besides 0 (the launch's rule):
+# the f32 tile 32, 16 or 8 queries (the unified launch's exact tiles; its
+# ADC tiles keep their own budget's), the tensor-core tiles 16, 8 or 4, the
+# ADC tile 8, 4, 2 or 1 (capped by the LUT budget, masked_topk_adc_tile)
+QUERY_TILES = {
+    "exact": (32, 16, 8),
+    "exact_bf16": (16, 8, 4),
+    "exact_int8": (16, 8, 4),
+    "pq": (8, 4, 2, 1),
+    "unified": (32, 16, 8),
+}
+# rows a chunk (csrc CN): the (Q, chunks, kc) scratch's unit, fixed
+CHUNK_ROWS = 512
+
+
+def check_tile(flavor: str, tile_q: int) -> int:
+    """``tile_q`` as an int if ``flavor``'s launch takes it; raises else."""
+    tile_q = int(tile_q)
+    if tile_q != 0 and tile_q not in QUERY_TILES[flavor]:
+        raise ValueError(f"tile_q={tile_q} is not a query tile of the {flavor!r} launch "
+                         f"(0 or one of {QUERY_TILES[flavor]})")
+    return tile_q
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -84,6 +112,7 @@ def _launch(
     metric: str = "l2",
     kind: int = 0,
     scales=(1.0, 1.0),
+    tile_q: int = 0,
 ):
     out_d = torch.full((q, k), float("inf"), dtype=torch.float32, device=device)
     out_i = torch.full((q, k), -1, dtype=torch.int32, device=device)
@@ -100,7 +129,7 @@ def _launch(
         rc = lib.masked_topk(
             _ptr(queries), _ptr(points), _ptr(luts), _ptr(codes),
             mask_rows.data_ptr(), _ptr(row_index), _ptr(qperm),
-            q, n, d, m, kcode, _METRIC[metric], n_exact, k, kind,
+            q, n, d, m, kcode, _METRIC[metric], n_exact, k, kind, tile_q,
             float(scales[0]), float(scales[1]),
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
@@ -138,6 +167,7 @@ def masked_exact_topk(
     *,
     metric: str = "l2",
     scales=None,
+    tile_q: int = 0,
 ):
     """Masked exact top-k: queries (Q, D), points (N, D), both f32, both
     bf16, or both int8 with ``scales`` = (q_scale, x_scale)."""
@@ -153,10 +183,11 @@ def masked_exact_topk(
         raise ValueError(f"feature dims differ: {queries.shape[1]} vs {points.shape[1]}")
     _check_mask(mask_rows, row_index, q, n)
     name = "masked_exact_topk" if row_index is None else "masked_exact_topk_multi"
+    tile_q = check_tile("exact" + suffix, tile_q)
     return _launch(
         name + suffix, q, n, int(k), device=queries.device, queries=queries, points=points,
         mask_rows=mask_rows, row_index=row_index, n_exact=q, metric=metric, kind=kind,
-        scales=scales or (1.0, 1.0),
+        scales=scales or (1.0, 1.0), tile_q=tile_q,
     )
 
 
@@ -166,6 +197,8 @@ def masked_pq_topk(
     mask_rows: torch.Tensor,
     row_index: Optional[torch.Tensor],
     k: int,
+    *,
+    tile_q: int = 0,
 ):
     """Masked PQ-ADC top-k: luts (Q, m, K) f32, codes (N, m) uint8."""
     q, n = luts.shape[0], codes.shape[0]
@@ -174,7 +207,7 @@ def masked_pq_topk(
     name = "masked_pq_topk" if row_index is None else "masked_pq_topk_multi"
     return _launch(
         name, q, n, int(k), device=luts.device, luts=luts, codes=codes,
-        mask_rows=mask_rows, row_index=row_index, n_exact=0,
+        mask_rows=mask_rows, row_index=row_index, n_exact=0, tile_q=check_tile("pq", tile_q),
     )
 
 
@@ -189,6 +222,7 @@ def unified_masked_topk(
     k: int,
     *,
     metric: str = "l2",
+    tile_q: int = 0,
 ):
     """Mixed-flavor masked top-k: ``flavor`` (Q,) bool, True = the query
     scores by PQ-ADC (luts, codes), False = full precision (points)."""
@@ -210,4 +244,5 @@ def unified_masked_topk(
         "unified_masked_topk", q, n, int(k), device=queries.device, queries=queries,
         points=points, luts=luts, codes=codes, mask_rows=mask_rows, row_index=row_index,
         qperm=qperm.contiguous(), n_exact=n_exact, metric=metric,
+        tile_q=check_tile("unified", tile_q),
     )

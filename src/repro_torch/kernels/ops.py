@@ -39,13 +39,19 @@ Masked-op contract (``masked_exact_topk`` / ``masked_pq_topk``, their
   card the bf16 / int8 kernels score the stored values, never an f32 scan
   in their place.  Quantized scores carry value error: callers route the
   pool through the full-precision :func:`gather_rerank` guard.
+- ``tile_q`` / ``tile_n`` (the masked ops): the kernel's query tile and
+  chunk rows, as the reference's wrappers take them.  Explicit values win
+  (an invalid one raises); ``None`` asks :func:`autotune.get_tiles` for
+  the call's (rows, D, flavor) bucket, and a cache miss is the launch's
+  own rule, ``(0, 512)``.  ``tile_n`` is fixed at the kernel's 512-row
+  chunk.  The plain version ignores the tile: it changes no result.
 - ``pq_scan`` is the dense ADC score matrix (no mask, no top-k), summed in
   the masked ADC kernels' order; ``pq_scan_topk`` its ascending top-k.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -111,6 +117,25 @@ def exact_topk(
 
 # -- mask-aware top-k --------------------------------------------------------
 
+_EXACT_FLAVOR = {"f32": "exact", "bf16": "exact_bf16", "int8": "exact_int8"}
+
+
+def _tiles(tile_q: Optional[int], tile_n: Optional[int], n_rows: int, d: int, flavor: str) -> int:
+    """A masked call's query tile, as the reference's ``_tiles`` resolves
+    it: explicit values win (and must be ones the launch takes); ``None``
+    asks the autotuner for this (rows, D, flavor) bucket, the launch's own
+    rule on a miss."""
+    # the autotuner loads when a call first asks it (`python -m
+    # repro_torch.kernels.autotune` then finds it unloaded)
+    from repro_torch.kernels import autotune
+
+    if tile_n is not None and int(tile_n) != _masked.CHUNK_ROWS:
+        raise ValueError(f"tile_n={tile_n}: the kernels' chunk is {_masked.CHUNK_ROWS} rows")
+    if tile_q is None:
+        tile_q = autotune.get_tiles(n_rows, d, flavor)[0]
+    return _masked.check_tile(flavor, tile_q)
+
+
 def _quant_inputs(queries: torch.Tensor, points: torch.Tensor, dtype: str, x_scale: float):
     """A quantized call's inputs: ``points`` may arrive stored (bf16 / int8
     from a cached device copy, with its ``x_scale``) or f32 to quantize
@@ -127,7 +152,7 @@ def _quant_inputs(queries: torch.Tensor, points: torch.Tensor, dtype: str, x_sca
 
 
 def _masked_quant(queries, points, k, metric, dtype, x_scale, *, kernel_masks=None,
-                  plain_mask=None):
+                  plain_mask=None, tile_q: int = 0):
     """Quantized masked exact top-k: the bf16 / int8 kernel on
     ``kernel_masks`` = (mask rows, row index or None), else the
     dequantizing plain version on ``plain_mask``, an (N,) row or a (Q, N)
@@ -140,7 +165,7 @@ def _masked_quant(queries, points, k, metric, dtype, x_scale, *, kernel_masks=No
         )
     return _masked.masked_exact_topk(
         qs, xs, *kernel_masks, int(k), metric=metric,
-        scales=(q_scale, x_scale) if dtype == "int8" else None,
+        scales=(q_scale, x_scale) if dtype == "int8" else None, tile_q=tile_q,
     )
 
 
@@ -165,19 +190,22 @@ def masked_exact_topk(
     backend: str = "auto",
     dtype: str = "f32",
     x_scale: float = 1.0,
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked exact top-k: (Q, D) x (N, D) under a (N,) row mask ->
-    (dists (Q, k), ids (Q, k)) per the masked-op contract above; ``dtype``
-    and ``x_scale`` as the contract says."""
+    (dists (Q, k), ids (Q, k)) per the masked-op contract above; ``dtype``,
+    ``x_scale``, ``tile_q`` and ``tile_n`` as the contract says."""
+    tq = _tiles(tile_q, tile_n, points.shape[0], points.shape[1], _EXACT_FLAVOR.get(dtype, "exact"))
     if dtype != "f32":
         if _use_kernel(backend, queries, points, mask):
             return _masked_quant(queries, points, k, metric, dtype, x_scale,
-                                 kernel_masks=(_bytes(mask).reshape(1, -1), None))
+                                 kernel_masks=(_bytes(mask).reshape(1, -1), None), tile_q=tq)
         return _masked_quant(queries, points, k, metric, dtype, x_scale, plain_mask=mask)
     q, x = _f32(queries), _f32(points)
     if _use_kernel(backend, q, x, mask):
         return _masked.masked_exact_topk(
-            q, x, _bytes(mask).reshape(1, -1), None, int(k), metric=metric
+            q, x, _bytes(mask).reshape(1, -1), None, int(k), metric=metric, tile_q=tq
         )
     return ref.masked_exact_topk(q, x, mask, int(k), metric=metric)
 
@@ -189,13 +217,16 @@ def masked_pq_topk(
     k: int,
     *,
     backend: str = "auto",
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked PQ-ADC top-k: LUTs (Q, m, K) x codes (N, m) under a (N,) row
     mask -> (scores (Q, k), ids (Q, k))."""
+    tq = _tiles(tile_q, tile_n, codes.shape[0], codes.shape[1], "pq")
     lt = _f32(luts)
     if _use_kernel(backend, lt, codes, mask):
         return _masked.masked_pq_topk(
-            lt, _codes(codes), _bytes(mask).reshape(1, -1), None, int(k)
+            lt, _codes(codes), _bytes(mask).reshape(1, -1), None, int(k), tile_q=tq
         )
     return ref.masked_pq_topk(lt, codes, mask, int(k))
 
@@ -219,24 +250,28 @@ def masked_exact_topk_multi(
     backend: str = "auto",
     dtype: str = "f32",
     x_scale: float = 1.0,
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query-mask exact top-k under a (Q, N) plane (row q masks query
     q): one call for a heterogeneous batch; Q == 1 goes to the single-mask
-    op.  ``dtype`` and ``x_scale`` as :func:`masked_exact_topk`."""
+    op.  ``dtype``, ``x_scale`` and the tiles as :func:`masked_exact_topk`."""
     _check_plane(masks, queries.shape[0], points.shape[0])
     if queries.shape[0] == 1:
         return masked_exact_topk(queries, points, masks[0], k, metric=metric, backend=backend,
-                                 dtype=dtype, x_scale=x_scale)
+                                 dtype=dtype, x_scale=x_scale, tile_q=tile_q, tile_n=tile_n)
+    tq = _tiles(tile_q, tile_n, points.shape[0], points.shape[1], _EXACT_FLAVOR.get(dtype, "exact"))
     if dtype != "f32":
         if _use_kernel(backend, queries, points, masks):
             rows = _all_rows(queries.shape[0], queries.device)
             return _masked_quant(queries, points, k, metric, dtype, x_scale,
-                                 kernel_masks=(_bytes(masks), rows))
+                                 kernel_masks=(_bytes(masks), rows), tile_q=tq)
         return _masked_quant(queries, points, k, metric, dtype, x_scale, plain_mask=masks)
     q, x = _f32(queries), _f32(points)
     if _use_kernel(backend, q, x, masks):
         return _masked.masked_exact_topk(
-            q, x, _bytes(masks), _all_rows(q.shape[0], q.device), int(k), metric=metric
+            q, x, _bytes(masks), _all_rows(q.shape[0], q.device), int(k), metric=metric,
+            tile_q=tq,
         )
     return ref.masked_exact_topk_multi(q, x, masks, int(k), metric=metric)
 
@@ -248,16 +283,21 @@ def masked_pq_topk_multi(
     k: int,
     *,
     backend: str = "auto",
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query-mask PQ-ADC top-k under a (Q, N) plane; Q == 1 goes to the
     single-mask op."""
     _check_plane(masks, luts.shape[0], codes.shape[0])
     if luts.shape[0] == 1:
-        return masked_pq_topk(luts, codes, masks[0], k, backend=backend)
+        return masked_pq_topk(luts, codes, masks[0], k, backend=backend, tile_q=tile_q,
+                              tile_n=tile_n)
+    tq = _tiles(tile_q, tile_n, codes.shape[0], codes.shape[1], "pq")
     lt = _f32(luts)
     if _use_kernel(backend, lt, codes, masks):
         return _masked.masked_pq_topk(
-            lt, _codes(codes), _bytes(masks), _all_rows(lt.shape[0], lt.device), int(k)
+            lt, _codes(codes), _bytes(masks), _all_rows(lt.shape[0], lt.device), int(k),
+            tile_q=tq,
         )
     return ref.masked_pq_topk_multi(lt, codes, masks, int(k))
 
@@ -273,10 +313,13 @@ def unified_masked_topk(
     *,
     metric: str = "l2",
     backend: str = "auto",
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-dispatch mixed-flavor masked top-k: (Q, D) x (N, D) exact and
     (Q, m, K) x (N, m) PQ-ADC under a (Q, N) mask plane, with a per-query
     ``flavor`` (truthy = ADC)."""
+    tq = _tiles(tile_q, tile_n, points.shape[0], points.shape[1], "unified")
     q, x, lt = _f32(queries), _f32(points), _f32(luts)
     _check_plane(masks, q.shape[0], x.shape[0])
     if lt.shape[0] != q.shape[0] or codes.shape[0] != x.shape[0]:
@@ -285,7 +328,7 @@ def unified_masked_topk(
     if _use_kernel(backend, q, x, lt, codes, masks, fl):
         return _masked.unified_masked_topk(
             q, x, lt, _codes(codes), _bytes(masks), _all_rows(q.shape[0], q.device),
-            fl.contiguous(), int(k), metric=metric,
+            fl.contiguous(), int(k), metric=metric, tile_q=tq,
         )
     return ref.unified_masked_topk(q, x, lt, codes, masks, fl, int(k), metric=metric)
 
@@ -315,21 +358,26 @@ def masked_exact_topk_dedup(
     backend: str = "auto",
     dtype: str = "f32",
     x_scale: float = 1.0,
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``masked_exact_topk_multi`` on ``unique_masks[row_index]``."""
     if queries.shape[0] == 1 or not _use_kernel(backend, queries, points, unique_masks, row_index):
         return masked_exact_topk_multi(
             queries, points, expand_mask_plane(unique_masks, row_index), k, metric=metric,
-            backend=backend, dtype=dtype, x_scale=x_scale,
+            backend=backend, dtype=dtype, x_scale=x_scale, tile_q=tile_q, tile_n=tile_n,
         )
+    tq = _tiles(tile_q, tile_n, points.shape[0], points.shape[1], _EXACT_FLAVOR.get(dtype, "exact"))
     if dtype != "f32":
         return _masked_quant(
             queries, points, k, metric, dtype, x_scale,
             kernel_masks=(_bytes(unique_masks), row_index.to(torch.int32).contiguous()),
+            tile_q=tq,
         )
     q, x = _f32(queries), _f32(points)
     return _masked.masked_exact_topk(
-        q, x, _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k), metric=metric
+        q, x, _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k), metric=metric,
+        tile_q=tq,
     )
 
 
@@ -341,15 +389,19 @@ def masked_pq_topk_dedup(
     k: int,
     *,
     backend: str = "auto",
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``masked_pq_topk_multi`` on ``unique_masks[row_index]``."""
     lt = _f32(luts)
     if lt.shape[0] == 1 or not _use_kernel(backend, lt, codes, unique_masks, row_index):
         return masked_pq_topk_multi(
-            lt, codes, expand_mask_plane(unique_masks, row_index), k, backend=backend
+            lt, codes, expand_mask_plane(unique_masks, row_index), k, backend=backend,
+            tile_q=tile_q, tile_n=tile_n,
         )
     return _masked.masked_pq_topk(
-        lt, _codes(codes), _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k)
+        lt, _codes(codes), _bytes(unique_masks), row_index.to(torch.int32).contiguous(), int(k),
+        tile_q=_tiles(tile_q, tile_n, codes.shape[0], codes.shape[1], "pq"),
     )
 
 
@@ -365,6 +417,8 @@ def unified_masked_topk_dedup(
     *,
     metric: str = "l2",
     backend: str = "auto",
+    tile_q: Optional[int] = None,
+    tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``unified_masked_topk`` on ``unique_masks[row_index]``."""
     q, x, lt = _f32(queries), _f32(points), _f32(luts)
@@ -372,13 +426,14 @@ def unified_masked_topk_dedup(
     if not _use_kernel(backend, q, x, lt, codes, unique_masks, row_index, fl):
         return unified_masked_topk(
             q, x, lt, codes, expand_mask_plane(unique_masks, row_index), fl, k,
-            metric=metric, backend=backend,
+            metric=metric, backend=backend, tile_q=tile_q, tile_n=tile_n,
         )
     if lt.shape[0] != q.shape[0] or codes.shape[0] != x.shape[0]:
         raise ValueError(f"shape mismatch: luts {tuple(lt.shape)}, codes {tuple(codes.shape)}")
     return _masked.unified_masked_topk(
         q, x, lt, _codes(codes), _bytes(unique_masks), row_index.to(torch.int32).contiguous(),
         fl.contiguous(), int(k), metric=metric,
+        tile_q=_tiles(tile_q, tile_n, points.shape[0], points.shape[1], "unified"),
     )
 
 

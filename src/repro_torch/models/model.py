@@ -57,6 +57,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import ParamBuilder
+from repro_torch.models.sharding import pinned, vocab_rows, vocab_split
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -148,7 +149,19 @@ def _layer(tree, i: int):
 # reference's).
 
 
+# On a mesh that splits the vocabulary, both take the vocabulary-parallel
+# lookup (``sharding.vocab_rows``): each device gathers the rows its block
+# holds and the partial rows are summed, where indexing the split table
+# would all-gather all of it to every device.  A table whole on every
+# device (one rank) keeps the indexing below, bit for bit.
+
+
 def _embed(params, cfg: ModelConfig, ids: torch.Tensor, dtype) -> torch.Tensor:
+    if vocab_split(params["embed"]):
+        x = vocab_rows(params["embed"].to(dtype), ids)
+        if cfg.num_codebooks:
+            x = x + params["pos_embed"][:ids.shape[1]][None, :, :].to(dtype)
+        return x
     if cfg.num_codebooks:
         # ids: (B, S, CB)
         tables = params["embed"].to(dtype)  # (CB, V, D)
@@ -162,6 +175,11 @@ def _embed(params, cfg: ModelConfig, ids: torch.Tensor, dtype) -> torch.Tensor:
 
 def _embed_decode(params, cfg: ModelConfig, ids: torch.Tensor, pos: int, dtype) -> torch.Tensor:
     # no gradient here: the rows are gathered first and only they are cast
+    if vocab_split(params["embed"]):
+        x = vocab_rows(params["embed"], ids, dtype)
+        if cfg.num_codebooks:
+            x = x + params["pos_embed"][pos:pos + 1].to(dtype)[None, :, :]
+        return x
     if cfg.num_codebooks:
         tables = params["embed"]
         x = tables[0][ids[..., 0]].to(dtype)
@@ -253,7 +271,7 @@ class Model:
 
     def _finish(self, params, x, last: bool):
         """Final norm and head, of the last position only with ``last``."""
-        x = L.apply_norm(self.cfg.norm, params["final_norm"], x)
+        x = L.apply_norm(self.cfg.norm, params["final_norm"], pinned(x))
         return _head(params, self.cfg, x[:, -1:, :] if last else x)
 
 
@@ -279,13 +297,15 @@ class Transformer(Model):
                              capacity_factor=cfg.capacity_factor)
 
     def _block(self, lp, x, q_offset: int = 0):
+        # on a mesh, the residual stream is pinned at each sublayer's edges
+        # (split over the batch only, both ways: ``sharding.pinned``)
         cfg = self.cfg
-        h = L.apply_norm(cfg.norm, lp["ln_att"], x)
+        h = L.apply_norm(cfg.norm, lp["ln_att"], pinned(x))
         att, kv = _attn_full(lp["attn"], self._cfg_kv, h, q_offset)
-        x = x + att
-        h = L.apply_norm(cfg.norm, lp["ln_mlp"], x)
+        x = x + pinned(att)
+        h = L.apply_norm(cfg.norm, lp["ln_mlp"], pinned(x))
         out, aux = self._ffn(lp, h)
-        return x + out, kv, aux
+        return x + pinned(out), kv, aux
 
     def forward(self, params, ids):
         cfg = self.cfg
@@ -351,10 +371,10 @@ class Transformer(Model):
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
             h = L.apply_norm(cfg.norm, lp["ln_att"], x)
-            x = x + _attn_decode(lp["attn"], self._cfg_kv, h, cache["k"][i], cache["v"][i],
-                                 positions, pos)
+            x = x + pinned(_attn_decode(lp["attn"], self._cfg_kv, h, cache["k"][i], cache["v"][i],
+                                        positions, pos))
             h = L.apply_norm(cfg.norm, lp["ln_mlp"], x)
-            x = x + self._ffn(lp, h, dense_moe=True)[0]
+            x = x + pinned(self._ffn(lp, h, dense_moe=True)[0])
         return self._finish(params, x, last=False), cache
 
 

@@ -30,9 +30,12 @@ The second half places tensors: :func:`place` / :func:`place_tree` (the
 counterpart of ``jit``'s ``in_shardings``: each rank keeps its block of a
 whole tensor, nothing sent), the re-layouts the model code needs where
 DTensor cannot follow a view (:func:`splittable`, :func:`split_only`,
-:func:`placed_like`), and :func:`on_blocks`, attention on each device's
-own block, which it marks as standing for every device's block
-(:func:`alike`), so that the analysis counters count global work.
+:func:`placed_like`), the layouts it pins where DTensor's own choice
+would move more than the reference's program (:func:`pinned`, the
+residual stream; :func:`vocab_rows`, the vocabulary-parallel lookup), and
+:func:`on_blocks`, attention on each device's own block, which it marks as
+standing for every device's block (:func:`alike`), so that the analysis
+counters count global work.
 """
 
 from __future__ import annotations
@@ -343,6 +346,154 @@ def split_only(x: torch.Tensor, dims) -> torch.Tensor:
     keep = {d % x.ndim for d in dims}
     want = tuple(p if isinstance(p, Shard) and p.dim in keep else Replicate() for p in x.placements)
     return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def _split_only_placements(x, keep) -> tuple:
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim in keep else Replicate() for p in x.placements)
+
+
+class _Pinned(torch.autograd.Function):
+    """``x`` in ``want`` on the way forward and its gradient in ``want`` on
+    the way back."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        return x.view_as(x) if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is not None and tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def pinned(x: torch.Tensor, dims=(0,)) -> torch.Tensor:
+    """``x`` split on ``dims`` at most, and so is its gradient: the layout of
+    the residual stream at a block's edges (batch over the data axes, whole
+    on ``model``), as the reference's partitioner keeps it.  A pending sum
+    (a row-split projection's output) is reduced here, both ways, by one
+    all-reduce; left to DTensor, a residual add reduce-scatters it over the
+    features and every op after it moves the activations again.  Plain
+    tensors, tensors on a one-rank mesh (every placement ``Replicate()``)
+    and DTensors already so laid out that need no gradient pass through
+    unchanged."""
+    if not is_dtensor(x) or x.device_mesh.size() == 1:
+        return x
+    want = _split_only_placements(x, {d % x.ndim for d in dims})
+    if tuple(x.placements) == want and not x.requires_grad:
+        return x
+    return _Pinned.apply(x, want)
+
+
+def _block_start(size: int, mesh, placements, dim: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's block of a dim of ``size``
+    split by ``placements`` (major to minor, as :func:`local_block` cuts
+    it)."""
+    from torch.distributed.tensor import Shard
+
+    coords = mesh.get_coordinate() or [0] * len(placements)
+    start, length = 0, size
+    for j, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim and mesh.size(j) > 1:
+            c = -(-length // mesh.size(j))
+            start += coords[j] * c
+            length = max(0, min(c, length - coords[j] * c))
+    return start, length
+
+
+class _VocabRows(torch.autograd.Function):
+    """Rows of a vocabulary-split table: each rank gathers the ids its block
+    holds, zeroes the others, and one all-reduce over the vocabulary's mesh
+    dims sums the partial rows; the gradient goes back to each rank's own
+    block (no collective: the output's gradient is made whole first)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, vocab_dims, dtype):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh, vdim = table.device_mesh, table.ndim - 2
+        if is_dtensor(ids):
+            ids = ids.redistribute(mesh, tuple(
+                Replicate() if j in vocab_dims else p for j, p in enumerate(ids.placements)))
+            lead = tuple(p if isinstance(p, Shard) else Replicate() for p in ids.placements)
+            ids_local = ids.to_local()
+        else:
+            lead, ids_local = (Replicate(),) * mesh.ndim, ids
+        local = table.to_local()
+        start, n = _block_start(table.shape[vdim], mesh, table.placements, vdim)
+        lid = ids_local - start
+        miss = (lid < 0) | (lid >= n)
+        lid = torch.where(miss, 0, lid)
+        if table.ndim == 2:
+            rows = torch.where(miss[..., None], 0, local[lid].to(dtype))
+        else:  # codebooks (CB, V, D), ids (..., CB): the streams' rows summed
+            rows = None
+            for cb in range(table.shape[0]):
+                r = torch.where(miss[..., cb, None], 0, local[cb][lid[..., cb]].to(dtype))
+                rows = r if rows is None else rows + r
+        ctx.save_for_backward(lid, miss)
+        ctx.table_meta = (mesh, table.placements, table.shape, table.stride(), local.shape, local.dtype)
+        gshape = (ids.shape[:-1] if table.ndim == 3 else ids.shape) + (table.shape[-1],)
+        partial = tuple(Partial() if j in vocab_dims else p for j, p in enumerate(lead))
+        out = DTensor.from_local(rows, mesh, partial,
+                                 run_check=False, shape=torch.Size(gshape),
+                                 stride=torch.empty(gshape, device="meta").stride())
+        ctx.out_placements = lead
+        return out.redistribute(mesh, lead)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        lid, miss = ctx.saved_tensors
+        mesh, placements, shape, stride, local_shape, dtype = ctx.table_meta
+        if tuple(g.placements) != ctx.out_placements:
+            g = g.redistribute(mesh, ctx.out_placements)
+        gl = g.to_local().to(dtype)
+        grad = torch.zeros(local_shape, dtype=dtype, device=gl.device)
+        if len(shape) == 2:
+            grad.index_put_((lid,), torch.where(miss[..., None], 0, gl), accumulate=True)
+        else:
+            for cb in range(shape[0]):
+                grad[cb].index_put_((lid[..., cb],), torch.where(miss[..., cb, None], 0, gl),
+                                    accumulate=True)
+        # the table's blocks as they were; a mesh dim that split the ids
+        # (the batch) and not the table leaves each rank a pending sum
+        gp = tuple(
+            p if isinstance(p, Shard) else Partial() if isinstance(q, Shard) else Replicate()
+            for p, q in zip(placements, ctx.out_placements))
+        return DTensor.from_local(grad, mesh, gp, run_check=False, shape=shape, stride=stride), \
+            None, None, None
+
+
+def vocab_split(table: torch.Tensor) -> tuple:
+    """The mesh dims (of more than one device) that split ``table``'s
+    vocabulary dim (its second to last), or ``()`` (a plain tensor, or a
+    table whole on every rank)."""
+    if not is_dtensor(table):
+        return ()
+    from torch.distributed.tensor import Shard
+
+    vdim = table.ndim - 2
+    return tuple(j for j, p in enumerate(table.placements)
+                 if isinstance(p, Shard) and p.dim == vdim and table.device_mesh.size(j) > 1)
+
+
+def vocab_rows(table: torch.Tensor, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``table[ids]`` (in ``dtype``) for a DTensor table (V, D), or (CB, V,
+    D) with ids (..., CB) summed over the codebooks, whose vocabulary dim
+    is split (:func:`vocab_split`): the vocabulary-parallel lookup, one
+    all-reduce of the rows where indexing the DTensor would all-gather the
+    whole table to every rank.  Other splits of the table are gathered
+    first."""
+    dims = vocab_split(table)
+    if not dims:
+        raise ValueError("vocab_rows wants a table split over its vocabulary dim")
+    table = split_only(table, (table.ndim - 2,))
+    return _VocabRows.apply(table, ids, dims, dtype or table.dtype)
 
 
 def placed_like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ from repro_torch.models.sharding import (
     implicit_replication,
     is_dtensor,
     logical_to_sharding,
+    pinned,
     place,
     place_tree,
     spec_for,
@@ -68,6 +69,23 @@ class TrainStepConfig:
     compute_dtype: str = "bfloat16"  # carried as the reference carries it; the model's cfg.dtype rules
 
 
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim.  Where a mesh splits that dim (the
+    vocabulary), it is written out so that each reduction leaves a pending
+    max or sum over the split, one all-reduce of (B, S) values each, as the
+    reference's program reduces: DTensor has no split strategy for
+    ``logsumexp`` and would all-gather the logits.  Elsewhere (one device,
+    a one-rank mesh) it is ``torch.logsumexp``, bit for bit as before."""
+    from torch.distributed.tensor import Shard
+
+    if not (is_dtensor(logits) and any(
+            isinstance(p, Shard) and p.dim == logits.ndim - 1 and logits.device_mesh.size(j) > 1
+            for j, p in enumerate(logits.placements))):
+        return torch.logsumexp(logits, dim=-1)
+    m = pinned(torch.amax(logits.detach(), dim=-1, keepdim=True))
+    return torch.log(pinned(torch.sum(torch.exp(logits - m), dim=-1))) + m[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over all positions; labels == -100 are masked.
 
@@ -78,14 +96,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         logits = logits.reshape(B, S * CB, V)
         labels = labels.reshape(B, S * CB)
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _logsumexp(logits)
     if is_dtensor(logits):
         # on a mesh the gold logit is a masked sum over the (vocab-split)
         # last dim, one term: the same value; DTensor's vocab-parallel
         # gather handles 2-D tables only
         V = logits.shape[-1]
         hit = torch.arange(V, device=labels.device) == labels.clamp(min=0)[..., None]
-        gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+        gold = pinned(torch.sum(torch.where(hit, logits, 0.0), dim=-1))
     else:
         gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     nll = logz - gold

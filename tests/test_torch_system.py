@@ -202,6 +202,9 @@ step, sh = make_train_step(m, mesh, cfg=TrainStepConfig(microbatches=2), device=
 p, o = init_train_state(m, mesh, seed=0)
 p, o, met = step(p, o, *SyntheticTokens(vocab_size=512, seq_len=8, batch_size=2).batch(0))
 destroy()
+# the autotuner: its lookup and the fixture it reads
+import repro_torch.kernels.autotune as autotune
+assert autotune.get_tiles(4096, 128, "exact") in autotune.FLAVOR_CANDIDATES["exact"]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 """
