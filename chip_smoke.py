@@ -172,9 +172,13 @@ no result line):
    time beside the row's per-device ``t_memory`` / ``t_compute``; recall is
    not measured (the graph is random).  (d) ``python -m
    repro_torch.launch.dryrun --arch qwen2.5-3b --shape decode_32k`` and
-   ``prefill_32k`` on the single-pod mesh as processes: rc 0, a row that is
-   not an error.  The three dry-run processes use no card: they start
-   before phase 3 and run beside it, and (c) and (d) read their rows.
+   ``prefill_32k``, and ``--arch rwkv6-3b`` and ``zamba2-1.2b`` at
+   ``decode_32k``, on the single-pod mesh as processes: rc 0, a row that is
+   not an error; the two recurrent rows move at most 1.5x the reference's
+   collective bytes, all-reduce the largest kind, nothing at the ops where
+   the batch-only scan and the cache copy gathered, memory-bound.  The five
+   dry-run processes use no card: they start before phase 3 and run beside
+   it, and (c) and (d) read their rows.
 
 Phase 2 also holds the quantized scans (bf16 and int8, row mask and
 dedup'd plane, stored against fresh quantization) and the dense
@@ -4175,17 +4179,28 @@ def _dry_run_rows(started, timeout: int = 300) -> list:
         return [json.loads(line) for line in f]
 
 
-DRY_RUN_SHAPES = ("decode_32k", "prefill_32k")  # 14d's cells of LM_ARCH, single-pod mesh
+# 14d's cells, single-pod mesh: LM_ARCH's decode and prefill, and the
+# recurrent families' decode held to their bounds
+DRY_RUN_CELLS = (
+    (LM_ARCH, "decode_32k"), (LM_ARCH, "prefill_32k"),
+    ("rwkv6-3b", "decode_32k"), ("zamba2-1.2b", "decode_32k"),
+)
+# the reference's global collective bytes on the same (16, 16) mesh
+# (``python -m repro.launch.dryrun``, jax 0.9.0 on the CPU); a row moves at
+# most 1.5x them, all-reduce its largest kind, nothing at the ops where the
+# batch-only scan and the cache copy gathered (PERF.md section 2)
+DRY_RUN_REFERENCE = {("rwkv6-3b", "decode_32k"): 4.33e7, ("zamba2-1.2b", "decode_32k"): 5.35e7}
+DRY_RUN_GATHER_OPS = ("select.int", "slice.Tensor", "copy_.default")
 
 
 def start_dry_runs(workdir: str) -> dict:
     """14c's and 14d's dry-run processes, started together."""
     runs = {"probe": _start_dry_run(["repro_torch.launch.probe_dryrun"],
                                     str(Path(workdir) / "probe_dryrun.jsonl"))}
-    for shape in DRY_RUN_SHAPES:
-        runs[shape] = _start_dry_run(["repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
-                                      shape, "--mesh", "single"],
-                                     str(Path(workdir) / f"dryrun_{shape}.jsonl"))
+    for arch, shape in DRY_RUN_CELLS:
+        runs[(arch, shape)] = _start_dry_run(
+            ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh", "single"],
+            str(Path(workdir) / f"dryrun_{arch}_{shape}.jsonl"))
     return runs
 
 
@@ -4264,23 +4279,35 @@ def phase_probe_share(torch, dev, seed: int, dry_runs: dict, smi: str):
 
 
 def phase_lm_dry_runs(dry_runs: dict):
-    """14d: the LM dry-run of qwen2.5-3b's decode_32k and prefill_32k cells
-    on the single-pod mesh, each as a process."""
+    """14d: the LM dry-runs of qwen2.5-3b's decode_32k and prefill_32k cells
+    and rwkv6-3b's and zamba2-1.2b's decode_32k on the single-pod mesh, each
+    as a process; the recurrent rows held to the reference's bytes."""
     t_phase = time.time()
     rows = []
-    for shape in DRY_RUN_SHAPES:
-        got = _dry_run_rows(dry_runs[shape])
+    for arch, shape in DRY_RUN_CELLS:
+        got = _dry_run_rows(dry_runs[(arch, shape)])
         if len(got) != 1 or got[0]["kind"] in ("error", "skip"):
-            raise AssertionError(f"dryrun {shape}: {got}")
+            raise AssertionError(f"dryrun {arch} {shape}: {got}")
         r = got[0]
         rf, co = r["roofline"], r["collectives"]
-        log(f"phase 14d dryrun {LM_ARCH} {shape} single ({r['chips']} devices, traced at depths "
+        ref = DRY_RUN_REFERENCE.get((arch, shape))
+        held = ""
+        if ref is not None:
+            by_kind = co["by_kind"]
+            gathered = {op: co["by_op"][op] for op in DRY_RUN_GATHER_OPS if op in co["by_op"]}
+            held = (f"; {co['global_bytes'] / ref:.3f}x the reference's {ref:.4e} B (bound 1.5), "
+                    f"collectives at {DRY_RUN_GATHER_OPS}: {gathered}")
+            if (co["global_bytes"] > 1.5 * ref or max(by_kind, key=by_kind.get) != "all-reduce"
+                    or gathered or rf["bottleneck"] != "memory"):
+                raise AssertionError(f"phase 14d: {arch} {shape}'s row leaves its bounds: "
+                                     f"{co['global_bytes']} B, {by_kind}, {gathered}, {rf['bottleneck']}")
+        log(f"phase 14d dryrun {arch} {shape} single ({r['chips']} devices, traced at depths "
             f"{r['traced_depths']} in {r['lower_s']} s): jaxpr_flops (traced) {rf['jaxpr_flops']:.4e} "
             f"(matmuls {r['cost_analysis']['dot_flops']:.4e}), model_flops {rf['model_flops']:.4e}, "
             f"useful_ratio {rf['useful_ratio']:.4f}; collectives {co['global_bytes']:.4e} B global "
             f"({co['by_kind']}); args {r['memory_analysis']['argument_bytes'] / 1e9:.3f} GB a device; "
             f"t_compute {rf['t_compute']:.3e} s, t_memory {rf['t_memory']:.3e} s, t_collective "
-            f"{rf['t_collective']:.3e} s: bottleneck {rf['bottleneck']}")
+            f"{rf['t_collective']:.3e} s: bottleneck {rf['bottleneck']}{held}")
         rows.append(r)
     return dict(seconds=time.time() - t_phase, rows=rows)
 

@@ -22,7 +22,10 @@ and the shared block after them, with the leftover layers in both traces),
 as the reference's jaxpr holds the layer scan's body once times its
 length.  Inside a layer, attention's block loop unrolls too (2,048 block
 pairs a layer at 32k); :func:`folded_attention` traces it as two one-block
-calls with the same counts.
+calls with the same counts, and :func:`folded_scans` the recurrent
+families' chunk loops (up to 1,024 chunks a layer) as runs of two and
+three chunks.  A train step's microbatch loop is traced over one and two
+microbatches (:func:`_run_counted`).
 """
 
 from __future__ import annotations
@@ -103,8 +106,11 @@ class CellSpec:
     skip_reason: Optional[str] = None
     mesh: object = None
     rules: Optional[LogicalRules] = None
-    # depth -> (step, args): the same cell at another layer count
+    # depth -> (step, args): the same cell at another layer count (a
+    # train cell's also takes a microbatch count: the step over that many
+    # of its microbatches)
     at_depth: Optional[Callable] = field(default=None, repr=False)
+    microbatches: int = 1
 
     def lower(self) -> Lowered:
         return _trace(self)
@@ -203,16 +209,18 @@ def build_cell(
         rules = rules or DEFAULT_RULES
         tcfg = TrainStepConfig(microbatches=microbatches, remat=remat)
 
-        def at_depth(n: int):
+        def at_depth(n: int, micro: int = microbatches):
             m = build_model(dataclasses.replace(cfg, num_layers=n), tp=tp, device=META)
-            step, _ = make_train_step(m, mesh, rules, tcfg, device=META)
+            step, _ = make_train_step(m, mesh, rules, dataclasses.replace(tcfg, microbatches=micro),
+                                      device=META)
             pshapes = _abstract(param_shapes(m), train_param_dtype)
             opt = AdamWState(
                 m=_abstract(pshapes, torch.float32),
                 v=_abstract(pshapes, torch.float32),
                 step=torch.empty((), dtype=torch.int32, device=META),
             )
-            ids = torch.empty((B, S) + ids_extra, dtype=torch.int64, device=META)
+            ids = torch.empty((B // microbatches * micro, S) + ids_extra, dtype=torch.int64,
+                              device=META)
             return step, (pshapes, opt, ids, ids)
 
         # musicgen codebook streams share one backbone position: tokens = B·S
@@ -228,7 +236,7 @@ def build_cell(
         )
         fn, args = at_depth(cfg.num_layers)
         return CellSpec(arch, shape, cfg, model, "train", fn, args, mf, mb, mesh=mesh,
-                        rules=rules, at_depth=at_depth)
+                        rules=rules, at_depth=at_depth, microbatches=microbatches)
 
     # serving cells: bf16 params.  Experts stay 1D (model) sharded when the
     # bf16 stack fits device memory that way (mixtral: 5.8 GB/device) — the
@@ -324,10 +332,109 @@ def folded_attention():
         layers.flash_attention, layers.flash_attention_sparse = real
 
 
+def _keep(t):
+    return t
+
+
+class _FoldedScan(torch.autograd.Function):
+    """A chunked scan of ``nc`` chunks traced as its first two chunks
+    (standing for ``3 - nc`` scans) and its first three (standing for ``nc -
+    2``), its backward the same two runs' backwards (:func:`_folded_scan`)."""
+
+    @staticmethod
+    def forward(ctx, real, n_seq, chunk, nc, *xs):
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+            ctx.inputs = [x.detach().requires_grad_(x.requires_grad) for x in xs]
+            ctx.runs = _scan_runs(real, n_seq, chunk, nc, ctx.inputs)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _scan_outputs(ctx.runs, xs[0].shape[1])
+
+    @staticmethod
+    def backward(ctx, g_seq, g_last):
+        want = [x for x in ctx.inputs if x.requires_grad]
+        got = [None] * len(want)
+        for k, w, (o_seq, o_last) in ctx.runs:
+            pairs = [(o, g) for o, g in ((o_seq, None if g_seq is None else g_seq[:, :k * ctx.chunk]),
+                                         (o_last, g_last)) if g is not None and o.requires_grad]
+            if pairs:
+                with alike(w):
+                    got = torch.autograd.grad([o for o, _ in pairs], want, [g for _, g in pairs],
+                                              allow_unused=True)
+        got = iter(got)  # the values are shape-only: the last run's stand for the sum
+        return (None,) * 4 + tuple(next(got) if x.requires_grad else None for x in ctx.inputs)
+
+
+def _scan_runs(real, n_seq, chunk, nc, xs):
+    """(chunks, factor, outputs) of the two runs: the first ``n_seq`` of
+    ``xs`` cut to 2 and 3 chunks along dim 1, the rest whole."""
+    runs = []
+    for k, w in ((2, 3 - nc), (3, nc - 2)):
+        part = [x[:, :k * chunk] if i < n_seq else x for i, x in enumerate(xs)]
+        with alike(w):
+            runs.append((k, w, real(*part, chunk=chunk)))
+    return runs
+
+
+def _scan_outputs(runs, S):
+    o_seq, o_last = runs[-1][2]
+    return o_seq.new_empty(o_seq.shape[:1] + (S,) + o_seq.shape[2:]), o_last.detach()
+
+
+def _folded_scan(real, n_seq: int):
+    """``real`` (``rwkv6._wkv_scan`` or ``mamba2._ssd_scan``: ``n_seq``
+    sequence inputs (B, S, ...) first, a chunk loop whose every trip runs
+    the same ops on the same shapes, and (sequence output, last state)
+    out) folded on shape-only inputs.  From two chunks on, a scan of ``k``
+    chunks counts ``P + k·T``: P what runs once, the first chunk's and the
+    last's own parts included (no gradient into an initial state that
+    needs none, none out of a last state nothing reads), T a middle trip,
+    forward and backward.  So one of ``nc`` chunks counts ``(3 - nc)``
+    scans of two chunks plus ``(nc - 2)`` of three (the first factor is
+    negative past three chunks: only the counters read it)."""
+
+    def scan(*xs, chunk):
+        S = xs[0].shape[1]
+        nc = S // chunk
+        if nc <= 3 or any(x.device.type != "meta" or is_dtensor(x) for x in xs):
+            return real(*xs, chunk=chunk)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            return _FoldedScan.apply(real, n_seq, chunk, nc, *xs)
+        return _scan_outputs(_scan_runs(real, n_seq, chunk, nc, xs), S)
+
+    return scan
+
+
+@contextmanager
+def folded_scans():
+    """Within, the recurrent families' chunked scans (``rwkv6._wkv_scan``,
+    ``mamba2._ssd_scan``) fold their chunk loops on shape-only inputs
+    (:func:`_folded_scan`): the same FLOP counts from five chunks' trips
+    in place of up to 1,024 (rwkv6's prefill_32k, a layer)."""
+    from repro_torch.models import mamba2, rwkv6
+
+    real = rwkv6._wkv_scan, mamba2._ssd_scan
+    rwkv6._wkv_scan = _folded_scan(real[0], 4)
+    mamba2._ssd_scan = _folded_scan(real[1], 4)
+    try:
+        yield
+    finally:
+        rwkv6._wkv_scan, mamba2._ssd_scan = real
+
+
 def _run_counted(cell: CellSpec, depth: int):
-    fn, args = cell.at_depth(depth)
-    with folded_attention(), CollectiveCounter(cell.mesh) as cc, FlopCounter() as fc:
-        out = fn(*args)
+    """The cell's step at ``depth`` layers under both counters.  A train
+    step of M > 2 microbatches runs every microbatch's ops on the same
+    shapes, so it counts ``P + M·T`` (P: the update and what else runs once,
+    T: a microbatch); it is traced over one microbatch (standing for ``2 -
+    M`` steps) and two (``M - 1``)."""
+    M = cell.microbatches
+    plan = ((None, 1),) if cell.kind != "train" or M <= 2 else ((1, 2 - M), (2, M - 1))
+    with folded_attention(), folded_scans(), CollectiveCounter(cell.mesh) as cc, FlopCounter() as fc:
+        for micro, w in plan:
+            fn, args = cell.at_depth(depth) if micro is None else cell.at_depth(depth, micro)
+            with alike(w):
+                out = fn(*args)
     return fc.count, cc.stats, args, out
 
 

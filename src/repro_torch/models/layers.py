@@ -142,7 +142,9 @@ def add_norm_params(b: ParamBuilder, path: str, d: int, norm_kind: str, layer_ax
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, frac: float, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, frac: float, theta: float, device) -> torch.Tensor:
+    """The rotated pairs' inverse frequencies on ``device`` (no default:
+    the caller's tensors name it)."""
     rot = int(head_dim * frac) // 2 * 2
     exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
     # a Python scalar base: no host-to-device copy (which would sync)

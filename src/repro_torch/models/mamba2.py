@@ -17,14 +17,17 @@ the SSM state is f32.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.device_cache import concrete_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamBuilder
 from repro_torch.models.rwkv6 import chunk_size, softplus
+from repro_torch.models.sharding import on_scan_blocks, pinned
 
 CONV_K = 4
 
@@ -78,7 +81,10 @@ def _gated_norm(y, z, scale):
     # the product is not rounded to y's dtype: XLA drops the round trip
     # bf16 -> f32 that the reference's astype would make
     yf = y.float() * L.silu(z).float()
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    # on a mesh that splits the features, the variance's sum is reduced
+    # whole (one all-reduce), as the reference's: left to DTensor it is
+    # scattered over the sequence and every feature moves after it
+    var = pinned(torch.mean(yf * yf, dim=-1, keepdim=True))
     return (yf * torch.rsqrt(var + 1e-6) * scale.float()).to(y.dtype)
 
 
@@ -117,15 +123,26 @@ def mamba2_chunked(
     H = p["A_log"].shape[-1]
     P = inner // H
     xh = xin.reshape(B, S, H, P)
-    A = -torch.exp(p["A_log"].float())  # (H,) negative
+    # on a mesh each device scans its own (batch, head) block
+    y, h = on_scan_blocks(partial(_ssd_scan, chunk=chunk), (xh, Bc, Cc, dt, p["A_log"], ssm_state),
+                          dims=((0, 2), (0, None), (0, None), (0, 2), (None, 0), (0, 1)),
+                          out_dims=((0, 2), (0, 1)))
+    return _finish(p, y, xh, z, x), conv, h
+
+
+def _ssd_scan(xh, Bc, Cc, dt, A_log, ssm_state, *, chunk: int):
+    """The chunked SSD recurrence of (B,S,H,P) x, (B,S,N) B and C and
+    (B,S,H) Δ from the (B,H,N,P) state; returns (y (B,S,H,P) f32, the last
+    state f32)."""
+    A = -torch.exp(A_log.float())  # (H,) negative
     la = dt * A[None, None, :]  # (B,S,H) log-decay per token
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
     h = ssm_state.float()
     ys = []
-    for c in range(S // chunk):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        xb, Bb, Cb = xh[:, sl].float(), Bc[:, sl].float(), Cc[:, sl].float()
-        dtb, lab = dt[:, sl], la[:, sl]  # (B,chunk,H)
+    # split, not sliced: the backward concatenates the chunks' gradients
+    # where slicing would add S / chunk zero-padded copies
+    for xb, Bb, Cb, dtb, lab in zip(*(t.split(chunk, dim=1) for t in (xh, Bc, Cc, dt, la))):
+        xb, Bb, Cb = xb.float(), Bb.float(), Cb.float()  # dtb, lab: (B,chunk,H)
         cum = torch.cumsum(lab, dim=1)  # (B,chunk,H) inclusive
         # intra-chunk: y_i += C_i · Σ_{j<=i} exp(cum_i - cum_j) Δ_j B_j x_jᵀ
         scores = Cb @ Bb.transpose(1, 2)  # (B,chunk,chunk)
@@ -145,8 +162,7 @@ def mamba2_chunked(
         gb = carry_gate[..., :, None] @ Bb[..., None, :]  # (B,j,h,n): the outer product, exact
         h = torch.exp(cl)[:, :, None, None] * h + torch.einsum("bjhn,bjhp->bhnp", gb, xb)
         ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)  # (B,S,H,P)
-    return _finish(p, y, xh, z, x), conv, h
+    return torch.cat(ys, dim=1), h  # (B,S,H,P)
 
 
 def mamba2_decode(
@@ -162,12 +178,21 @@ def mamba2_decode(
     H = p["A_log"].shape[-1]
     P = inner // H
     xh = xin.reshape(B, H, P).float()
-    A = -torch.exp(p["A_log"].float())
+    # on a mesh each device steps its own (batch, head) block
+    y, h_new = on_scan_blocks(_ssd_step, (xh, Bc, Cc, dt, p["A_log"], ssm_state),
+                              dims=((0, 1), (0, None), (0, None), (0, 2), (None, 0), (0, 1)),
+                              out_dims=((0, 1), (0, 1)))
+    return _finish(p, y[:, None], xh[:, None], z, x), conv, h_new
+
+
+def _ssd_step(xh, Bc, Cc, dt, A_log, ssm_state):
+    """One token's SSD step of (B,H,P) f32 x, (B,1,N) B and C and (B,1,H) Δ
+    from the (B,H,N,P) state; returns (y (B,H,P) f32, the new state)."""
+    A = -torch.exp(A_log.float())
     decay = torch.exp(dt[:, 0] * A[None, :])  # (B,H)
     dB = dt[:, 0][:, :, None] * Bc[:, 0].float()[:, None, :]  # (B,H,N)
     h_new = decay[:, :, None, None] * ssm_state.float() + dB[..., :, None] * xh[..., None, :]
-    y = torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), h_new)
-    return _finish(p, y[:, None], xh[:, None], z, x), conv, h_new
+    return torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), h_new), h_new
 
 
 def mamba2_ref(p: dict, x: torch.Tensor, conv_state: tuple, ssm_state: torch.Tensor):
@@ -180,7 +205,10 @@ def mamba2_ref(p: dict, x: torch.Tensor, conv_state: tuple, ssm_state: torch.Ten
     return torch.stack(outs, dim=1), cs, hs
 
 
-def init_mamba2_state(cfg, batch: int, device="cpu"):
+def init_mamba2_state(cfg, batch: int, device="cuda"):
+    """Zero conv and SSM states on ``device`` (CUDA by default; raises
+    without a card)."""
+    device = concrete_device(device)
     inner = cfg.ssm_expand * cfg.d_model
     H = cfg.ssm_heads_eff
     P = inner // H

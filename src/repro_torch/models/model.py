@@ -57,7 +57,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import ParamBuilder
-from repro_torch.models.sharding import pinned, vocab_rows, vocab_split
+from repro_torch.models.sharding import pinned, placed_like, vocab_rows, vocab_split
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -395,14 +395,16 @@ class Rwkv(Model):
 
     def _block(self, lp, x, x_att, x_ffn, wkv, chunked: bool):
         """One layer from its carries; returns (x, (x_att, x_ffn, wkv))."""
+        # the residual stream pinned at each sublayer's edges, as the
+        # transformer's (``sharding.pinned``)
         cfg = self.cfg
-        h = L.apply_norm(cfg.norm, lp["ln_att"], x)
+        h = L.apply_norm(cfg.norm, lp["ln_att"], pinned(x))
         mix = R6.rwkv6_chunked if chunked else R6.rwkv6_decode
         att, x_att, wkv = mix(lp["tmix"], h, x_att, wkv)
-        x = x + att
-        h = L.apply_norm(cfg.norm, lp["ln_ffn"], x)
+        x = x + pinned(att)
+        h = L.apply_norm(cfg.norm, lp["ln_ffn"], pinned(x))
         ff, x_ffn = self._cmix(lp["cmix"], h, x_ffn)
-        return x + ff, (x_att, x_ffn, wkv)
+        return x + pinned(ff), (x_att, x_ffn, wkv)
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -447,7 +449,8 @@ class Rwkv(Model):
         x = _embed_decode(params, self.cfg, ids, int(pos), self.dtype)
         x, new = self._run(params, x, cache, chunked=False)
         for name, t in zip(("x_att", "x_ffn", "wkv"), new):
-            cache[name].copy_(t)
+            # each carry in the cache's own layout: the copy is local
+            cache[name].copy_(placed_like(t, cache[name]))
         return self._finish(params, x, last=False), cache
 
 
@@ -472,10 +475,10 @@ class Mamba(Model):
         attention output."""
         cfg = self.cfg
         sp = params["shared"]
-        h = L.apply_norm(cfg.norm, sp["ln_att"], x)
-        x = x + attend(sp["attn"], h)
-        h = L.apply_norm(cfg.norm, sp["ln_mlp"], x)
-        return x + L.mlp_block(sp["mlp"], h, cfg.mlp)
+        h = L.apply_norm(cfg.norm, sp["ln_att"], pinned(x))
+        x = x + pinned(attend(sp["attn"], h))
+        h = L.apply_norm(cfg.norm, sp["ln_mlp"], pinned(x))
+        return x + pinned(L.mlp_block(sp["mlp"], h, cfg.mlp))
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -516,10 +519,10 @@ class Mamba(Model):
         outs = []
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
-            h = L.apply_norm(cfg.norm, lp["ln"], x)
+            h = L.apply_norm(cfg.norm, lp["ln"], pinned(x))
             conv = (cache["conv_x"][i], cache["conv_B"][i], cache["conv_C"][i])
             out, conv, st = mix(lp["mixer"], h, conv, cache["ssm"][i])
-            x = x + out
+            x = x + pinned(out)
             outs.append(conv + (st,))
             if i in self.shared_after:
                 x = shared(x, self.shared_after[i])
@@ -583,7 +586,7 @@ class Mamba(Model):
 
         x, new = self._run(params, x, cache, False, shared)
         for name, t in zip(("conv_x", "conv_B", "conv_C", "ssm"), new):
-            cache[name].copy_(t)
+            cache[name].copy_(placed_like(t, cache[name]))
         return self._finish(params, x, last=False), cache
 
 

@@ -23,6 +23,7 @@ its threshold, where ``jax.nn.softplus`` does not).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
 import numpy as np
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamBuilder
-from repro_torch.models.sharding import split_only, splittable
+from repro_torch.models.sharding import on_scan_blocks, splittable
 
 
 def add_rwkv6_params(b: ParamBuilder, path: str, cfg, layer_axes=()) -> None:
@@ -113,22 +114,31 @@ def rwkv6_chunked(
     chunk: int = 32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training/prefill form.  Returns (out (B,S,D), x_last (B,D), state)."""
-    B, S, D = x.shape
-    chunk = chunk_size(S, chunk)
+    chunk = chunk_size(x.shape[1], chunk)
     xs = _token_shift(x, x_prev)
     r, k, v, g, log_w = _project(p, x, xs)
-    H, N = r.shape[2], r.shape[3]
-    u = p["u_bonus"].float()
-    nC = S // chunk
-    # on a mesh the scan keeps the batch split and the rest whole: its
-    # per-chunk contractions merge the head dim with others
-    r, k, v, log_w, state = (split_only(t, (0,)) for t in (r, k, v, log_w, state))
+    # on a mesh each device scans its own (batch, head) block
+    o, state = on_scan_blocks(partial(_wkv_scan, chunk=chunk),
+                              (r, k, v, log_w, p["u_bonus"], state),
+                              dims=((0, 2),) * 4 + ((None, 0), (0, 1)),
+                              out_dims=((0, 2), (0, 1)))
+    return _out(p, o, g, x), x[:, -1, :], state
 
-    def to_chunks(a):  # (B,S,H,N) -> (nC, B, H, C, N)
-        return a.reshape(B, nC, chunk, H, N).permute(1, 0, 3, 2, 4)
+
+def _wkv_scan(r, k, v, log_w, u, state, *, chunk: int):
+    """The chunked WKV recurrence of (B,S,H,N) r, k, v, log w from the
+    (B,H,N,N) state; returns (o (B,S,H,N) f32, the last state f32)."""
+    B, S, H, N = r.shape
+    u = u.float()
+    nC = S // chunk
+
+    def to_chunks(a):  # (B,S,H,N) -> nC of (B, H, C, N)
+        # unbound, not indexed: the backward stacks the chunks' gradients
+        # where indexing would add nC zero-padded copies
+        return a.reshape(B, nC, chunk, H, N).permute(1, 0, 3, 2, 4).unbind(0)
 
     rc, kc, vc, lwc = map(to_chunks, (r, k, v, log_w))
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device), diagonal=-1)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), diagonal=-1)
     S_prev = state.float()
     outs = []
     for c in range(nC):
@@ -158,7 +168,7 @@ def rwkv6_chunked(
         outs.append(o_inter + o_intra + o_diag)
     # (nC, B, H, C, N) -> (B, S, H, N)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, S, H, N)
-    return _out(p, o, g, x), x[:, -1, :], S_prev
+    return o, S_prev
 
 
 def rwkv6_decode(
@@ -170,7 +180,17 @@ def rwkv6_decode(
     """Single-token step: O(H·N²)."""
     xs = x_prev[:, None, :].to(x.dtype)
     r, k, v, g, log_w = _project(p, x, xs)
-    u = p["u_bonus"].float()
+    # on a mesh each device steps its own (batch, head) block
+    o, state = on_scan_blocks(_wkv_step, (r, k, v, log_w, p["u_bonus"], state),
+                              dims=((0, 2),) * 4 + ((None, 0), (0, 1)),
+                              out_dims=((0, 2), (0, 1)))
+    return _out(p, o, g, x), x[:, -1, :], state
+
+
+def _wkv_step(r, k, v, log_w, u, state):
+    """One token's WKV step of (B,1,H,N) r, k, v, log w from the (B,H,N,N)
+    state; returns (o (B,1,H,N) f32, the new state f32)."""
+    u = u.float()
     r32 = r[:, 0].float()  # (B,H,N)
     k32 = k[:, 0].float()
     v32 = v[:, 0].float()
@@ -178,8 +198,7 @@ def rwkv6_decode(
     kv = k32[..., :, None] * v32[..., None, :]  # (B,H,N,N)
     state = state.float()
     o = (r32[..., None, :] @ (state + u[None, :, :, None] * kv))[..., 0, :]  # (B,H,N)
-    state = w[..., None] * state + kv
-    return _out(p, o[:, None], g, x), x[:, -1, :], state
+    return o[:, None], w[..., None] * state + kv
 
 
 def rwkv6_ref(p: dict, x: torch.Tensor, x_prev: torch.Tensor, state: torch.Tensor):

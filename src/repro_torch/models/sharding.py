@@ -561,8 +561,9 @@ def _keep(t):
 
 
 class _Blocks(torch.autograd.Function):
-    """``fn`` on one device's local blocks, its forward and its backward
-    each standing for ``n`` alike blocks (:func:`alike`)."""
+    """``fn`` on one device's local blocks (one output or a tuple), its
+    forward and its backward each standing for ``n`` alike blocks
+    (:func:`alike`)."""
 
     @staticmethod
     def forward(ctx, fn, n, *xs):
@@ -572,15 +573,24 @@ class _Blocks(torch.autograd.Function):
         with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
             ctx.inputs = [x.detach().requires_grad_(x.requires_grad) for x in xs]
             with alike(n):
-                ctx.out = fn(*ctx.inputs)
+                out = fn(*ctx.inputs)
+        ctx.single = torch.is_tensor(out)
+        ctx.out = (out,) if ctx.single else tuple(out)
         ctx.n = n
-        return ctx.out.detach()
+        # an output nothing reads (a scan's last carry) gets no backward
+        ctx.set_materialize_grads(False)
+        outs = tuple(o.detach() for o in ctx.out)
+        return outs[0] if ctx.single else outs
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         want = [x for x in ctx.inputs if x.requires_grad]
-        with alike(ctx.n):
-            got = iter(torch.autograd.grad(ctx.out, want, grad))
+        pairs = [(o, g) for o, g in zip(ctx.out, grads) if g is not None and o.requires_grad]
+        got = iter([None] * len(want))
+        if pairs:
+            with alike(ctx.n):
+                got = iter(torch.autograd.grad([o for o, _ in pairs], want, [g for _, g in pairs],
+                                               allow_unused=True))
         return (None, None) + tuple(next(got) if x.requires_grad else None for x in ctx.inputs)
 
 
@@ -608,6 +618,87 @@ def on_blocks(fn, q, k, v, *extra):
     out = DTensor.from_local(out, mesh, layout, run_check=False, shape=q.shape,
                              stride=torch.empty(q.shape, device="meta").stride())
     return placed_like(out, q)
+
+
+def _scan_layout(lead, dims) -> tuple:
+    """On each mesh dim: ``"batch"`` where DTensor ``lead`` is split on its
+    batch dim, ``"heads"`` where on its head dim, else ``None``, each kept
+    only while every tensor of ``dims`` ((shape, batch dim, head dim)
+    triples) still splits evenly."""
+    from torch.distributed.tensor import Shard
+
+    mesh, ways = lead.device_mesh, {"batch": 1, "heads": 1}
+    lb, lh = dims[0][1], dims[0][2]
+    roles = []
+    for j, p in enumerate(lead.placements):
+        role = None
+        if isinstance(p, Shard) and mesh.size(j) > 1 and p.dim in (lb, lh):
+            role = "batch" if p.dim == lb else "heads"
+            m = ways[role] * mesh.size(j)
+            pick = 1 if role == "batch" else 2
+            if all(d[pick] is None or d[0][d[pick]] % m == 0 for d in dims):
+                ways[role] = m
+            else:
+                role = None
+        roles.append(role)
+    return tuple(roles)
+
+
+def _role_placements(roles, batch_dim, head_dim, grad: bool = False) -> tuple:
+    """A tensor's placements under ``roles``; with ``grad``, its gradient's
+    from one block: a pending sum on a mesh dim whose role the tensor lacks
+    (each device's batch rows add to a parameter's gradient; each device's
+    heads to that of a tensor all heads read)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dim = {"batch": batch_dim, "heads": head_dim}
+    return tuple(Replicate() if r is None else Shard(dim[r]) if dim[r] is not None
+                 else Partial() if grad else Replicate() for r in roles)
+
+
+def on_scan_blocks(fn, args, dims, out_dims):
+    """``fn(*args)``, a recurrence independent per (batch, head), run as the
+    reference's partitioner runs it: each device scans its own (batch, head)
+    block of local tensors, no collective inside and none of DTensor's
+    dispatch on each step.  ``dims[i]`` is ``(batch dim, head dim)`` of
+    ``args[i]`` (``None`` where it has none), ``out_dims`` the same for each
+    output of ``fn`` (a tuple).  The blocks follow ``args[0]``: a mesh dim
+    that splits its batch splits every tensor's batch, one that splits its
+    heads evenly for every tensor splits every tensor's heads, and the rest
+    are replicated (a head count that does not divide the mesh dim, as the
+    reference's rules replicate it).  Plain tensors are the whole, cut to
+    each rank's block with no collective.  The blocks' ops stand for every
+    distinct block's (:func:`alike`).  Without a DTensor in ``args[0]``, or
+    on a one-rank mesh, ``fn`` runs on ``args`` as they are."""
+    from torch.distributed.tensor import DTensor
+
+    lead = args[0]
+    if not is_dtensor(lead) or lead.device_mesh.size() == 1:
+        return fn(*args)
+    mesh = lead.device_mesh
+    roles = _scan_layout(lead, [(a.shape,) + tuple(d) for a, d in zip(args, dims)])
+    n = math.prod(mesh.size(j) for j, r in enumerate(roles) if r is not None)
+    local = []
+    for a, (bd, hd) in zip(args, dims):
+        want = _role_placements(roles, bd, hd)
+        local.append(a.redistribute(mesh, want).to_local(
+            grad_placements=_role_placements(roles, bd, hd, grad=True)) if is_dtensor(a)
+            else local_block(a, mesh, want))
+    if n > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in local):
+        outs = _Blocks.apply(fn, n, *local)
+    else:
+        with alike(n):
+            outs = fn(*local)
+    wrapped = []
+    for o, (bd, hd) in zip(outs, out_dims):
+        want = _role_placements(roles, bd, hd)
+        shape = list(o.shape)
+        for j, p in enumerate(want):
+            if p.is_shard():
+                shape[p.dim] *= mesh.size(j)
+        wrapped.append(DTensor.from_local(o, mesh, want, run_check=False, shape=torch.Size(shape),
+                                          stride=torch.empty(shape, device="meta").stride()))
+    return tuple(wrapped)
 
 
 def place(tensor: torch.Tensor, sharding: NamedSharding):

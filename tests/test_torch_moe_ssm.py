@@ -271,7 +271,7 @@ def mamba_pair():
 
 def _mamba_states(cfg, seed):
     rng = np.random.default_rng(seed)
-    conv, ssm = M2.init_mamba2_state(cfg, 2)
+    conv, ssm = M2.init_mamba2_state(cfg, 2, device="cpu")
     conv = tuple((rng.normal(size=c.shape) * 0.5).astype(np.float32) for c in conv)
     return conv, (rng.normal(size=ssm.shape) * 0.1).astype(np.float32)
 

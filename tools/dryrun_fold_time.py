@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Trace seconds of one dry-run cell with attention's block loops folded
-and unfolded, and the counts of both.
+"""Trace seconds of one dry-run cell with its loops folded and unfolded,
+and the counts of both.
 
     python3 tools/dryrun_fold_time.py --arch qwen2.5-3b --shape prefill_32k --mesh single
+    python3 tools/dryrun_fold_time.py --arch rwkv6-3b --shape train_4k
 
 ``CellSpec.lower()`` traces under ``launch.specs.folded_attention`` (two
-one-q-block calls for all of a layer's block pairs); the unfolded run
-replaces it with a context that does nothing, so every pair is traced.
-Prints one JSON line a run: the trace's seconds and its FLOP and
-collective counts, which must agree.  Runs on the CPU (a fake group, no
-card).
+one-q-block calls for all of a layer's block pairs) and
+``folded_scans`` (runs of two and three chunks for a recurrent scan's
+chunk loop), and a train cell over one and two microbatches for its
+microbatch loop; the unfolded run replaces both contexts with ones that
+do nothing and traces every microbatch.  Prints one JSON line a run: the
+trace's seconds and its FLOP and collective counts, which must agree.
+Runs on the CPU (a fake group, no card).
 """
 
 import argparse
@@ -30,10 +33,20 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default="prefill_32k")
     ap.add_argument("--mesh", default="single", choices=sorted(dryrun.MESH_CHIPS))
     args = ap.parse_args(argv)
-    folded = specs.folded_attention
+    folded = specs.folded_attention, specs.folded_scans, dryrun.build_cell
+
+    def every_microbatch(*a, **kw):
+        cell = folded[2](*a, **kw)
+        cell.microbatches = 1  # _run_counted then traces the step as built
+        return cell
+
     rows = {}
     for name in ("folded", "unfolded"):
-        specs.folded_attention = folded if name == "folded" else contextlib.nullcontext
+        if name == "folded":
+            specs.folded_attention, specs.folded_scans, dryrun.build_cell = folded
+        else:
+            specs.folded_attention = specs.folded_scans = contextlib.nullcontext
+            dryrun.build_cell = every_microbatch
         t0 = time.time()
         row = dryrun.run_cell(args.arch, args.shape, args.mesh)
         rows[name] = row
@@ -43,7 +56,7 @@ def main(argv=None) -> int:
             "flops": row["cost_analysis"]["flops"], "dot_flops": row["cost_analysis"]["dot_flops"],
             "collective_bytes": row["collectives"]["global_bytes"],
         }), flush=True)
-    specs.folded_attention = folded
+    specs.folded_attention, specs.folded_scans, dryrun.build_cell = folded
     same = all(rows["folded"][k] == rows["unfolded"][k] for k in ("cost_analysis", "collectives"))
     print(f"counts equal: {same}")
     return 0 if same else 1

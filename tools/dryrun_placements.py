@@ -3,15 +3,19 @@
 each issues.
 
     python3 tools/dryrun_placements.py --arch qwen2.5-3b --shape train_4k --depth 1 [--per-layer]
+    python3 tools/dryrun_placements.py --arch zamba2-1.2b --shape decode_32k --per-layer
 
 Traces the cell at ``--depth`` layers on the named mesh's fake group, as
 ``CellSpec.lower()`` traces it, with every DTensor redistribution logged:
 global collective bytes by (kind, the aten op being dispatched or
 ``direct``, placements from, placements to, global shape, dtype), largest
-first.  ``--per-layer`` traces ``depth + 1`` too and prints the
-difference: one layer's share, what ``lower()`` extends to the full depth.
-On a CPU group a shard-to-shard move is an all-gather and a local chunk.
-Runs on the CPU (no card).
+first.  ``--per-layer`` traces one group of layers deeper too and prints
+the difference: one group's share, what ``lower()`` extends to the full
+depth.  A group is one layer, or for a hybrid (zamba2) its
+``shared_attn_every`` mamba layers and the shared block after them;
+``--depth`` defaults to the shallower of ``lower()``'s two depths
+(``specs.trace_depths``).  On a CPU group a shard-to-shard move is an
+all-gather and a local chunk.  Runs on the CPU (no card).
 """
 
 import argparse
@@ -63,7 +67,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
-    ap.add_argument("--depth", type=int, default=1)
+    ap.add_argument("--depth", type=int, default=None)
     ap.add_argument("--per-layer", action="store_true")
     ap.add_argument("--top", type=int, default=40)
     args = ap.parse_args(argv)
@@ -71,15 +75,17 @@ def main(argv=None) -> int:
     log: collections.Counter = collections.Counter()
     _logging(log)
     cell = specs.build_cell(args.arch, args.shape, dryrun.production_mesh(args.mesh))
-    _, stats, _, _ = specs._run_counted(cell, args.depth)
-    print(f"depth {args.depth}: {stats.global_bytes} B global, by kind {stats.by_kind}")
+    depth = args.depth or specs.trace_depths(cell.cfg)[0]
+    group = cell.cfg.shared_attn_every or 1
+    _, stats, _, _ = specs._run_counted(cell, depth)
+    print(f"depth {depth}: {stats.global_bytes} B global, by kind {stats.by_kind}")
     if args.per_layer:
         first = collections.Counter(log)
         log.clear()
-        _, stats, _, _ = specs._run_counted(cell, args.depth + 1)
-        print(f"depth {args.depth + 1}: {stats.global_bytes} B global, by kind {stats.by_kind}")
+        _, stats, _, _ = specs._run_counted(cell, depth + group)
+        print(f"depth {depth + group}: {stats.global_bytes} B global, by kind {stats.by_kind}")
         log.subtract(first)
-        print("one layer's share:")
+        print("one layer's share:" if group == 1 else f"one group's share ({group} layers):")
     total = sum(log.values()) or 1
     for (kind, op, src, dst, shape, dtype), b in log.most_common(args.top):
         if b:
