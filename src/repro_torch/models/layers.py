@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.device_cache import resolve_device
 from repro_torch.models.sharding import is_dtensor, on_blocks
 
 # ---------------------------------------------------------------------------
@@ -38,20 +39,21 @@ class ParamBuilder:
     """Collects params + logical axes as parallel nested dicts.
 
     Normal draws come from ``generator`` on ``device`` (f32, then cast to
-    ``dtype``, as the reference draws f32 and casts).  ``abstract=True``
-    records shape-only ``meta`` tensors instead of allocating, to derive the
-    shape tree without paying for a full init."""
+    ``dtype``, as the reference draws f32 and casts): the card unless the
+    caller names another device (``resolve_device``: no card raises).
+    ``abstract=True`` records shape-only ``meta`` tensors instead of
+    allocating, to derive the shape tree without paying for a full init."""
 
     def __init__(
         self,
         generator: Optional[torch.Generator],
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
         abstract: bool = False,
     ):
         self.generator = generator
         self.dtype = dtype
-        self.device = torch.device("meta") if abstract else torch.device(device)
+        self.device = torch.device("meta") if abstract else resolve_device(device)
         self.abstract = abstract
         self.params: Dict[str, Any] = {}
         self.axes: Dict[str, Any] = {}

@@ -78,7 +78,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _init_params(cfg: ModelConfig, kv_eff: int, generator, *, dtype=torch.float32,
-                 device="cpu", abstract: bool = False):
+                 device="cuda", abstract: bool = False):
     b = ParamBuilder(generator, dtype=dtype, device=device, abstract=abstract)
     d, V = cfg.d_model, cfg.vocab_size
     nl = cfg.num_layers

@@ -13,6 +13,12 @@ Port of ``repro/models/moe.py``:
 
 ``moe_block_dense_ref`` runs every token through every expert, gated: the
 exact (no-drop) form that decode uses.
+
+On a mesh of more than one device the dispatch, the expert FFN and the
+combine run on each device's block (:func:`_experts_on_blocks`), as the
+reference's partitioner keeps the tokens where they are split (DTensor's
+own strategy for the expert ``bmm`` would move its activations between a
+token and an ff split).
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 from repro_torch.models.layers import ParamBuilder
-from repro_torch.models.sharding import placed_like
+from repro_torch.models.sharding import SUM, is_dtensor, pinned, placed_like
 
 
 def add_moe_params(b: ParamBuilder, path: str, cfg, layer_axes=()) -> None:
@@ -44,8 +51,11 @@ def _route(p: dict, x: torch.Tensor, top_k: int):
     gates and expert ids (..., K), in ``lax.top_k``'s order."""
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]
+    gate_idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :top_k]
+    # the gates read through a one-hot mask, and so their gradient: the
+    # sort's own backward is a scatter, which torch 2.11's DTensor
+    # computes on the whole (G, S, E) gathered over the batch
+    gate_vals = (probs[..., None, :] * F.one_hot(gate_idx, probs.shape[-1]).to(probs.dtype)).sum(dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
     return probs, gate_vals, gate_idx
 
@@ -84,7 +94,9 @@ def moe_block(
     gsz = min(group_size, T)
     assert T % gsz == 0, (T, gsz)
     G = T // gsz
-    xg = x.reshape(G, gsz, D)
+    # on a mesh, the groups split over the batch only, and so is their
+    # gradient (the router's and the experts' pending sums settled at once)
+    xg = pinned(x.reshape(G, gsz, D))
 
     probs, gate_vals, gate_idx = _route(p, xg, K)  # (G,S,E), (G,S,K)
     # mask (G, S, E, K): expert e selected as the k-th choice
@@ -100,19 +112,89 @@ def moe_block(
     pos, within = buffer_slots(sel, C)
     disp_k = F.one_hot(pos.long(), C).to(x.dtype) * within[..., None].to(x.dtype)
     dispatch = disp_k.sum(dim=3)  # (G,S,E,C)
-    combine = dispatch.float() * combine_w[..., None]  # (G,S,E,C)
 
-    # each (e, g, c) slot holds at most one token: the dispatch is a gather
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)  # (E,G,C,D)
-    h_in = expert_in.reshape(E, G * C, D)
-    g = torch.bmm(h_in, p["wi_gate"].to(x.dtype))
-    u = torch.bmm(h_in, p["wi_up"].to(x.dtype))
-    h = L.silu(g) * u
-    expert_out = torch.bmm(h, p["wo"].to(x.dtype)).reshape(E, G, C, D)
-    out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+    ws = (p["wi_gate"], p["wi_up"], p["wo"])
+    if is_dtensor(xg) and xg.device_mesh.size() > 1:
+        out = _experts_on_blocks(xg, dispatch, combine_w, ws, x.dtype)
+    else:
+        out = _combined(dispatch, combine_w, _experts(_dispatched(dispatch, xg), *ws), x.dtype)
     # on a mesh, back in the tokens' layout before the groups unflatten
     # into (B, S): DTensor may split the groups over more devices than B
     return placed_like(out, xg).reshape(B, S, D), aux
+
+
+def _dispatched(dispatch, xg):
+    """Each expert's buffer (E, G, C, D) of tokens: each (e, g, c) slot holds
+    at most one token, so the dispatch is a gather."""
+    return torch.einsum("gsec,gsd->egcd", dispatch, xg)
+
+
+def _gated(h_in, wi_gate, wi_up):
+    """The experts' gated products silu(x Wg) * (x Wu), (E, G·C, F), of
+    their buffers (E, G, C, D)."""
+    E, G, C, D = h_in.shape
+    h_in = h_in.reshape(E, G * C, D)
+    g = torch.bmm(h_in, wi_gate.to(h_in.dtype))
+    u = torch.bmm(h_in, wi_up.to(h_in.dtype))
+    return g, u
+
+
+def _experts(expert_in, wi_gate, wi_up, wo):
+    """The experts' FFN of their buffers (E, G, C, D), the same shape."""
+    g, u = _gated(expert_in, wi_gate, wi_up)
+    return _out(L.silu(g) * u, wo, expert_in.shape[1])
+
+
+def _out(h, wo, G: int):
+    """(E, G·C, F) through ``wo`` -> (E, G, C, D)."""
+    E, GC, _ = h.shape
+    return torch.bmm(h, wo.to(h.dtype)).reshape(E, G, GC // G, -1)
+
+
+def _combined(dispatch, combine_w, expert_out, dtype):
+    """Each token's gated sum of its experts' outputs, (G, S, D)."""
+    combine = dispatch.float() * combine_w[..., None]  # (G,S,E,C)
+    return torch.einsum("gsec,egcd->gsd", combine.to(dtype), expert_out)
+
+
+def _experts_on_blocks(xg, dispatch, combine_w, ws, dtype):
+    """The dispatch, the expert FFN and the combine of DTensors, run on each
+    device's block (:func:`sharding.expert_roles`): the token groups stay
+    split over the batch's mesh dims (nothing gathers them), and on the
+    mesh dim that splits ``wo`` each device runs its experts (``"expert"``),
+    its slice of the ff dim (``"ff"``: ``wi`` re-split on F by one
+    all-to-all, as Megatron's column- then row-parallel pair) or of
+    ``d_model`` (``"embed"``: the first contraction's pending sum settled by
+    one all-reduce before the silu, as a row-parallel layer).  The expert
+    weights are gathered over the other mesh dims (their gradients reduced
+    back), once a call unless the train step gathered them for the whole
+    step; the output is a pending sum over the expert's or ff's mesh dim,
+    or split on ``d_model``, for the caller's ``placed_like`` to settle."""
+    wg, wu, wo = ws
+    mesh, roles = xg.device_mesh, sharding.expert_roles(xg, wo)
+    n = math.prod(mesh.size(j) for j, r in enumerate(roles) if r is not None)
+    w_in = {"expert": 0, "embed": 1, "ff": 2}
+    xl = sharding.block(xg, roles, {"batch": 0, "embed": 2}, grad={"expert": SUM, "ff": SUM})
+    dl = sharding.block(dispatch, roles, {"batch": 0, "expert": 2})
+    wgl, wul = (sharding.weight_block(w, roles, w_in, dtype) for w in (wg, wu))
+    # the buffers are alike on an ff split's devices: they count once
+    n_in = math.prod(mesh.size(j) for j, r in enumerate(roles) if r not in (None, "ff"))
+    expert_in = sharding.run_blocks(_dispatched, n_in, dl, xl)
+    g, u = sharding.run_blocks(_gated, n, expert_in, wgl, wul)
+    # (E, G·C, F): the groups lead the rows
+    gu_dims = {"batch": 1, "expert": 0, "ff": 2, "embed": SUM}
+    g, u = (sharding.unblock(t, mesh, roles, gu_dims) for t in (g, u))
+    if "embed" in roles:  # the pending sums settled: one all-reduce each
+        g, u = (placed_like(t, t) for t in (g, u))
+    # the gradient of h settled once, before the silu's backward splits it
+    h = pinned(L.silu(g) * u, dims=(0, 1, 2))
+    h_dims = {"batch": 1, "expert": 0, "ff": 2}
+    hl = sharding.block(h, roles, h_dims, grad={"embed": SUM})
+    wol = sharding.weight_block(wo, roles, {"expert": 0, "ff": 1, "embed": 2}, dtype)
+    cl = sharding.block(combine_w, roles, {"batch": 0, "expert": 2}, grad={"ff": SUM, "embed": SUM})
+    G = xl.shape[0]
+    out = sharding.run_blocks(lambda a, b, c, d: _combined(c, d, _out(a, b, G), dtype), n, hl, wol, dl, cl)
+    return sharding.unblock(out, mesh, roles, {"batch": 0, "expert": SUM, "ff": SUM, "embed": 2})
 
 
 def moe_block_dense_ref(p: dict, x: torch.Tensor, *, num_experts: int, top_k: int) -> torch.Tensor:

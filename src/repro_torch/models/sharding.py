@@ -35,7 +35,9 @@ would move more than the reference's program (:func:`pinned`, the
 residual stream; :func:`vocab_rows`, the vocabulary-parallel lookup), and
 :func:`on_blocks`, attention on each device's own block, which it marks as
 standing for every device's block (:func:`alike`), so that the analysis
-counters count global work.
+counters count global work; :func:`on_scan_blocks` does the same for the
+recurrences, and :func:`expert_roles`, :func:`block`, :func:`weight_block`
+and :func:`run_blocks` for the MoE block's experts.
 """
 
 from __future__ import annotations
@@ -610,11 +612,7 @@ def on_blocks(fn, q, k, v, *extra):
     whole = (Replicate(),) * mesh.ndim
     ql, kl, vl = (t.redistribute(mesh, layout).to_local() for t in (q, k, v))
     ex = [e.redistribute(mesh, whole).to_local() if is_dtensor(e) else e for e in extra]
-    if n > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in (ql, kl, vl)):
-        out = _Blocks.apply(lambda a, b, c: fn(a, b, c, *ex), n, ql, kl, vl)
-    else:
-        with alike(n):
-            out = fn(ql, kl, vl, *ex)
+    out = run_blocks(lambda a, b, c: fn(a, b, c, *ex), n, ql, kl, vl)
     out = DTensor.from_local(out, mesh, layout, run_check=False, shape=q.shape,
                              stride=torch.empty(q.shape, device="meta").stride())
     return placed_like(out, q)
@@ -670,8 +668,6 @@ def on_scan_blocks(fn, args, dims, out_dims):
     each rank's block with no collective.  The blocks' ops stand for every
     distinct block's (:func:`alike`).  Without a DTensor in ``args[0]``, or
     on a one-rank mesh, ``fn`` runs on ``args`` as they are."""
-    from torch.distributed.tensor import DTensor
-
     lead = args[0]
     if not is_dtensor(lead) or lead.device_mesh.size() == 1:
         return fn(*args)
@@ -684,21 +680,162 @@ def on_scan_blocks(fn, args, dims, out_dims):
         local.append(a.redistribute(mesh, want).to_local(
             grad_placements=_role_placements(roles, bd, hd, grad=True)) if is_dtensor(a)
             else local_block(a, mesh, want))
-    if n > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in local):
-        outs = _Blocks.apply(fn, n, *local)
-    else:
-        with alike(n):
-            outs = fn(*local)
-    wrapped = []
-    for o, (bd, hd) in zip(outs, out_dims):
-        want = _role_placements(roles, bd, hd)
-        shape = list(o.shape)
-        for j, p in enumerate(want):
-            if p.is_shard():
-                shape[p.dim] *= mesh.size(j)
-        wrapped.append(DTensor.from_local(o, mesh, want, run_check=False, shape=torch.Size(shape),
-                                          stride=torch.empty(shape, device="meta").stride()))
-    return tuple(wrapped)
+    outs = run_blocks(fn, n, *local)
+    return tuple(_from_block(o, mesh, _role_placements(roles, bd, hd)) for o, (bd, hd) in zip(outs, out_dims))
+
+
+SUM = "sum"  # a role's entry in :func:`role_placements`: a pending sum on that mesh dim
+
+
+def role_placements(roles, dims: dict) -> tuple:
+    """Placements under ``roles`` (one role name or ``None`` per mesh dim):
+    ``Shard(dims[role])``, ``Partial()`` where ``dims[role]`` is
+    :data:`SUM`, ``Replicate()`` where the role is absent from ``dims``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    out = []
+    for r in roles:
+        d = dims.get(r) if r is not None else None
+        out.append(Replicate() if d is None else Partial() if d == SUM else Shard(d))
+    return tuple(out)
+
+
+def expert_roles(xg: torch.Tensor, wo: torch.Tensor) -> tuple:
+    """On each mesh dim of the dispatched tokens ``xg`` (G, S, D) and an
+    expert stack ``wo`` (E, F, D): ``"batch"`` where the dim splits the
+    token groups (evenly, major to minor), else where it splits ``wo``,
+    ``"expert"`` (E), ``"ff"`` (F) or ``"embed"`` (D), else ``None``: the
+    layout in which ``moe._experts_on_blocks`` runs each device's block."""
+    from torch.distributed.tensor import Shard
+
+    mesh, ways, roles = xg.device_mesh, 1, []
+    for j, (p, q) in enumerate(zip(xg.placements, wo.placements)):
+        if mesh.size(j) == 1:
+            roles.append(None)
+        elif type(p) is Shard and p.dim == 0 and xg.shape[0] % (ways * mesh.size(j)) == 0:
+            ways *= mesh.size(j)
+            roles.append("batch")
+        elif type(q) is Shard:
+            roles.append(("expert", "ff", "embed")[q.dim])
+        else:
+            roles.append(None)
+    return tuple(roles)
+
+
+class _Gathered(torch.autograd.Function):
+    """DTensor ``w`` in ``dtype`` and placements ``want``; the gradient goes
+    back in ``w``'s dtype and placements (a pending sum reduced there, in
+    that dtype)."""
+
+    @staticmethod
+    def forward(ctx, w, want, dtype):
+        ctx.have, ctx.dtype = tuple(w.placements), w.dtype
+        x = w.to(dtype)
+        return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(ctx.dtype)
+        return (g if tuple(g.placements) == ctx.have else g.redistribute(g.device_mesh, ctx.have)), \
+            None, None
+
+
+def gathered(w: torch.Tensor, dims, dtype) -> torch.Tensor:
+    """DTensor ``w`` cast to ``dtype`` and whole on the mesh dims ``dims``
+    (gathered there; its other splits kept); the gradient is cast back
+    before its pending sums are reduced into ``w``'s blocks, so that they
+    add in ``w``'s dtype.  ``w`` itself where nothing changes."""
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if j in dims else p for j, p in enumerate(w.placements))
+    if w.dtype == dtype and tuple(w.placements) == want:
+        return w
+    return _Gathered.apply(w, want, dtype)
+
+
+def _all_to_all(x: torch.Tensor, src: int, dst: int, mesh, j: int) -> torch.Tensor:
+    """``x``, a block split on dim ``src`` over mesh dim ``j``, re-split on
+    dim ``dst`` instead: each rank sends the i-th slice of ``dst`` to rank i
+    (one all-to-all) and joins what it receives along ``src``."""
+    from torch.distributed import _functional_collectives as funcol
+
+    n = mesh.size(j)
+    send = torch.stack(x.chunk(n, dim=dst))
+    got = funcol.all_to_all_single(send, None, None, (mesh, j))
+    got = funcol.wait_tensor(got) if isinstance(got, funcol.AsyncCollectiveTensor) else got
+    return torch.cat(got.unbind(0), dim=src)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all` of a local block, its gradient the reverse move."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, mesh, j):
+        ctx.args = (src, dst, mesh, j)
+        return _all_to_all(x, src, dst, mesh, j)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, mesh, j = ctx.args
+        return _all_to_all(g, dst, src, mesh, j), None, None, None, None
+
+
+def weight_block(w: torch.Tensor, roles, dims: dict, dtype) -> torch.Tensor:
+    """This rank's block of the DTensor weight ``w`` in ``dtype``, split as
+    ``dims`` maps ``roles`` and whole on every other mesh dim (gathered by
+    :func:`gathered`; a split that moves to another tensor dim on one mesh
+    dim by one all-to-all, which DTensor would issue as a gather on a CPU
+    group), as a plain tensor.  Its gradient is a pending sum on the mesh
+    dims that split the tokens (``"batch"``), reduced into ``w``'s blocks
+    by whichever gathered it."""
+    want = role_placements(roles, dims)
+    have = tuple(w.placements)
+    moves = [j for j, (a, b) in enumerate(zip(have, want)) if a.is_shard() and b.is_shard() and a.dim != b.dim]
+    keep = tuple(have[j] if j in moves else want[j] for j in range(len(want)))
+    w = gathered(w, [j for j in range(len(want)) if keep[j].is_replicate() and have[j].is_shard()], dtype)
+    grad = role_placements(roles, {**dims, "batch": SUM})
+    local = w.to_local(grad_placements=tuple(have[j] if j in moves else grad[j] for j in range(len(want))))
+    for j in moves:
+        local = _AllToAll.apply(local, have[j].dim, want[j].dim, w.device_mesh, j)
+    return local
+
+
+def block(x: torch.Tensor, roles, dims: dict, grad: Optional[dict] = None) -> torch.Tensor:
+    """This rank's block of DTensor ``x`` laid out by ``dims`` under
+    ``roles`` (:func:`role_placements`), as a plain tensor whose gradient
+    is read in the placements of ``dims`` updated by ``grad`` (a pending
+    sum where each block adds to the whole's gradient)."""
+    want = role_placements(roles, dims)
+    x = x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+    return x.to_local(grad_placements=role_placements(roles, {**dims, **(grad or {})}))
+
+
+def _from_block(local: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The DTensor in ``placements`` whose block on this rank is ``local``
+    (every block of a split dim as long)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(local.shape)
+    for j, p in enumerate(placements):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(j)
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def unblock(local: torch.Tensor, mesh, roles, dims: dict) -> torch.Tensor:
+    """The DTensor whose block on this rank is ``local``, laid out by
+    ``dims`` under ``roles``."""
+    return _from_block(local, mesh, role_placements(roles, dims))
+
+
+def run_blocks(fn, n: int, *xs):
+    """``fn(*xs)`` on local blocks, its ops (forward and backward) standing
+    for ``n`` alike blocks (:func:`alike`)."""
+    if n > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        return _Blocks.apply(fn, n, *xs)
+    with alike(n):
+        return fn(*xs)
 
 
 def place(tensor: torch.Tensor, sharding: NamedSharding):

@@ -21,7 +21,11 @@ replicated, and each microbatch's ids and labels are split by
 ``spec_for(("batch", "seq"[, "codebook"]))``; the step places what it is
 given (a DTensor already in place is left alone) and DTensor inserts the
 collectives: the gradient reductions where a gradient meets its buffer, and
-the moments' gather where the update meets the params.
+the moments' gather where the update meets the params.  A parameter split
+over a mesh dim that splits the batch (the expert stacks' ff dim over
+``data``) is gathered in the compute dtype once a step, before the
+microbatches and the remat (:func:`_batch_gathered`), and each
+microbatch's gradient reduced back in f32.
 
 Gradients accumulate straight into one f32 buffer a parameter: each stacked
 ``layers/...`` tensor is split into per-layer leaves whose ``.grad`` is that
@@ -46,6 +50,7 @@ from repro_torch.models.sharding import (
     LogicalRules,
     NamedSharding,
     PartitionSpec,
+    gathered,
     implicit_replication,
     is_dtensor,
     logical_to_sharding,
@@ -149,6 +154,21 @@ def _shardings(model: Model, mesh, rules: LogicalRules):
     return Shardings
 
 
+def _batch_gathered(params, dims, dtype):
+    """``params`` with each DTensor split over one of the mesh dims ``dims``
+    (the batch's) whole there, in ``dtype`` (``sharding.gathered``).  Called
+    once a step, outside the microbatches' remat: the whole-loss checkpoint
+    holds every layer's gathered block through each backward all the same,
+    so gathering them again for the recomputed forward, or for the next
+    microbatch, would buy no memory."""
+    def one(p):
+        if is_dtensor(p) and any(p.placements[j].is_shard() for j in dims):
+            return gathered(p, dims, dtype)
+        return p
+
+    return tree_map(one, params)
+
+
 def make_train_step(model: Model, mesh=None, rules: Optional[LogicalRules] = None,
                     cfg: TrainStepConfig = TrainStepConfig(), device="cuda"):
     """Returns ``(train_step, Shardings)`` for ``model`` on ``device`` (CUDA
@@ -160,6 +180,8 @@ def make_train_step(model: Model, mesh=None, rules: Optional[LogicalRules] = Non
     if model.device != dev:
         raise ValueError(f"the model lives on {model.device}, the step on {dev}")
     sh = None if mesh is None else _shardings(model, mesh, rules or DEFAULT_RULES)
+    batch_dims = () if sh is None else tuple(
+        j for j, p in enumerate(sh.batch.placements) if p.is_shard() and mesh.size(j) > 1)
 
     def loss_fn(params, ids, labels):
         logits, aux = model.forward(params, ids)
@@ -185,6 +207,7 @@ def make_train_step(model: Model, mesh=None, rules: Optional[LogicalRules] = Non
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             pairs: list = []
             leaves = _grad_leaves(params, grads, pairs)
+            inputs = _batch_gathered(leaves, batch_dims, model.dtype) if batch_dims else leaves
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(n_micro):
                 rows = slice(i * mb, (i + 1) * mb)
@@ -193,14 +216,14 @@ def make_train_step(model: Model, mesh=None, rules: Optional[LogicalRules] = Non
                     split = NamedSharding(mesh, spec_for(sh.batch_logical, sh.rules, mesh,
                                                          dim_sizes=tuple(mi.shape)))
                     mi, ml = place(mi, split), place(ml, split)
-                loss = loss_for_grad(leaves, mi, ml)
+                loss = loss_for_grad(inputs, mi, ml)
                 if is_dtensor(loss):
                     loss = loss.full_tensor()
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
             if any(_data_ptr(t.grad) != _data_ptr(g) for t, g in pairs):
                 raise RuntimeError("autograd replaced a gradient buffer instead of adding into it")
-            del leaves, pairs
+            del leaves, inputs, pairs
             for g in tree_leaves(grads):
                 g.div_(n_micro)
             params, opt_state, stats = adamw_update(

@@ -1,4 +1,5 @@
-"""The recurrent families' mesh steps give the unsharded steps' values.
+"""The recurrent and MoE families' mesh steps give the unsharded steps'
+values.
 
 One 4-process gloo group on a (data=2, model=2) CPU mesh, f32 reduced
 configs with scan chunks of 8 (32 tokens: four chunks):
@@ -11,6 +12,12 @@ configs with scan chunks of 8 (32 tokens: four chunks):
   ``make_serve_fns``, and one ``train_step`` (2 microbatches, AdamW): its
   loss, gradient norm, first moments (``(1 - b1) * grad`` after one step)
   and one gradient leaf's, and the updated params;
+- mixtral with its MoE groups cut to 16 tokens (the token groups split
+  over ``data``): 4 experts (split over ``model``: each device runs its
+  experts), 3 (``d_model`` split over ``model``: the first contraction's
+  pending sum all-reduced) and 3 under ``expert_mlp="model"`` (the ff dim
+  split over ``model``: ``wi`` re-split from ``d_model`` by an
+  all-to-all), each through the three steps below;
 - each against the same step with ``mesh=None``, within the tolerances of
   ``test_torch_mesh_layout.py`` and ``test_torch_dryrun.py`` (the
   reductions split over ranks sum in another order).
@@ -31,10 +38,15 @@ torch = pytest.importorskip("torch")
 
 FWD_TOL = 1e-5  # f32 logits, of a logit scale ~1
 TRAIN_TOL = dict(loss=1e-6, grad_norm=1e-6, m=1e-5, params=2e-4)
-CONFIGS = {  # name: (arch, overrides, the leaf whose gradient is reported)
-    "rwkv6-split-heads": ("rwkv6-3b", {}, ("layers", "tmix", "wr")),
-    "rwkv6-whole-heads": ("rwkv6-3b", {"ssm_heads": 3}, ("layers", "tmix", "wr")),
-    "zamba2": ("zamba2-1.2b", {"num_layers": 2, "shared_attn_every": 2}, ("layers", "mixer", "w_x")),
+MOE_GROUP = 16  # tokens in a MoE group: 4-8 groups a step, split over data
+CONFIGS = {  # name: (arch, overrides, the leaf whose gradient is reported, rule overrides)
+    "rwkv6-split-heads": ("rwkv6-3b", {}, ("layers", "tmix", "wr"), {}),
+    "rwkv6-whole-heads": ("rwkv6-3b", {"ssm_heads": 3}, ("layers", "tmix", "wr"), {}),
+    "zamba2": ("zamba2-1.2b", {"num_layers": 2, "shared_attn_every": 2}, ("layers", "mixer", "w_x"), {}),
+    "mixtral-experts": ("mixtral-8x7b", {}, ("layers", "moe", "wi_gate"), {}),
+    "mixtral-embed": ("mixtral-8x7b", {"num_experts": 3}, ("layers", "moe", "wo"), {}),
+    "mixtral-ff": ("mixtral-8x7b", {"num_experts": 3}, ("layers", "moe", "wi_up"),
+                   {"expert_mlp": "model"}),
 }
 
 
@@ -64,11 +76,11 @@ def _steps(rank: int, out: str) -> None:
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.specs import SERVE_RULES
-    from repro_torch.models import mamba2, rwkv6
+    from repro_torch.models import mamba2, moe, rwkv6
     from repro_torch.models.model import build_model, param_shapes
     from repro_torch.models.sharding import (
         DEFAULT_RULES, NamedSharding, implicit_replication, logical_to_sharding, place,
-        place_tree, spec_for,
+        place_tree, spec_for, with_rules,
     )
     from repro_torch.serving.serve_loop import ServeConfig, make_serve_fns
     from repro_torch.training.optimizer import tree_leaves, tree_map
@@ -77,10 +89,12 @@ def _steps(rank: int, out: str) -> None:
     # scan chunks of 8: the 32-token sequences take four chunks
     rwkv6.rwkv6_chunked = partial(rwkv6.rwkv6_chunked, chunk=8)
     mamba2.mamba2_chunked = partial(mamba2.mamba2_chunked, chunk=8)
+    moe.moe_block = partial(moe.moe_block, group_size=MOE_GROUP)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     B, S, G = 4, 32, 4
     report = {}
-    for name, (arch, over, leaf) in CONFIGS.items():
+    for name, (arch, over, leaf, rule_over) in CONFIGS.items():
+        rules, serve_rules = (with_rules(r, **rule_over) for r in (DEFAULT_RULES, SERVE_RULES))
         cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32", **over)
         model = build_model(cfg, tp=2, device="cpu")
         params = model.init(torch.Generator().manual_seed(0), dtype=torch.float32)
@@ -89,8 +103,8 @@ def _steps(rank: int, out: str) -> None:
         fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (G, B, 1)))
         r = report[name] = {}
 
-        sh = logical_to_sharding(model.axes, DEFAULT_RULES, mesh, shapes_tree=param_shapes(model))
-        ids_sh = NamedSharding(mesh, spec_for(("batch", "seq"), DEFAULT_RULES, mesh))
+        sh = logical_to_sharding(model.axes, rules, mesh, shapes_tree=param_shapes(model))
+        ids_sh = NamedSharding(mesh, spec_for(("batch", "seq"), rules, mesh))
         with implicit_replication():
             logits, _ = model.forward(place_tree(params, sh), place(ids, ids_sh))
         want, _ = model.forward(params, ids)
@@ -100,7 +114,7 @@ def _steps(rank: int, out: str) -> None:
         runs = []
         for m in (None, mesh):
             prefill, decode, _sample, _ = make_serve_fns(
-                model, m, SERVE_RULES if m is not None else None, ServeConfig(param_dtype="float32"),
+                model, m, serve_rules if m is not None else None, ServeConfig(param_dtype="float32"),
                 batch_hint=B, max_len_hint=S + G, device="cpu")
             lg, cache = prefill(params, ids, model.init_cache(B, S + G))
             seq = [_whole(lg)]
@@ -113,8 +127,8 @@ def _steps(rank: int, out: str) -> None:
         labels = torch.roll(ids, -1, 1)
         res = []
         for m in (None, mesh):
-            p, o = init_train_state(model, m, seed=0)
-            step, _ = make_train_step(model, m, cfg=TrainStepConfig(microbatches=2, lr=1e-3),
+            p, o = init_train_state(model, m, rules, seed=0)
+            step, _ = make_train_step(model, m, rules, cfg=TrainStepConfig(microbatches=2, lr=1e-3),
                                       device="cpu")
             p, o, met = step(p, o, ids, labels)
             g = o.m
