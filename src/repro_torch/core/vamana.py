@@ -27,6 +27,12 @@ visited through the ``gather_rerank`` kernel), :meth:`VamanaGraph.tombstone`,
 :meth:`VamanaGraph.search_masked` (the predicate-aware traversal of
 filtered probes), :meth:`VamanaGraph.insert_batch` (the refresh's greedy
 insert), :func:`brute_force_topk`, :func:`recall_at_k`.
+
+While the span log (``serving.metrics``) is on, each search batch's wait
+for the device lock is a ``device.lock_wait`` span and its locked body a
+``beam.run`` span, which ends at the results' ``.cpu()``; building a beam
+runner is a ``beam.build`` span (on a card, the CUDA-graph capture, which
+synchronises the device as it begins).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from repro_torch.core.pq import PQCodebook, build_luts, encode
 from repro_torch.kernels import device_cache, ops
 from repro_torch.kernels.device_cache import resolve_device, to_device
+from repro_torch.serving import metrics as spans
 
 INF = float("inf")
 
@@ -536,7 +543,7 @@ class VamanaGraph:
         vecs = device_cache.device_padded_vectors(self)
         adj = device_cache.device_adjacency(self)
         for s, cnt, qb in self._batches(queries, batch):
-            with device_cache.device_lock(self.device):
+            with device_cache.locked(self.device, "beam.run"):
                 beam = self._beam(vecs, adj, tuple(qb.shape), L, max_iters, False)
                 ids, dists, _, _ = beam.run(qb)
                 ids_np = ids.cpu().numpy()
@@ -570,7 +577,7 @@ class VamanaGraph:
         adj = device_cache.device_adjacency(self)
         cap = self.vectors.shape[0]
         for s, cnt, qb in self._batches(queries, batch):
-            with device_cache.device_lock(self.device):
+            with device_cache.locked(self.device, "beam.run"):
                 luts = build_luts(self.pq, qb, device=self.device)  # (B, m, K)
                 beam = self._beam(codes, adj, tuple(luts.shape), L, max_iters, True)
                 ids, dists, vis_ids, _ = beam.run(luts)
@@ -617,9 +624,11 @@ class VamanaGraph:
         key = (masked, use_pq, q_shape, L, max_iters, self.n, self.medoid)
         beam = beams.get(key)
         if beam is None or beam.vectors is not data or beam.adjacency is not adj:
-            beam = (_MaskedBeam if masked else _Beam)(
-                data, adj, self.n, self.medoid, q_shape, L, max_iters, self.params.metric, use_pq
-            )
+            with spans.span("beam.build"):
+                beam = (_MaskedBeam if masked else _Beam)(
+                    data, adj, self.n, self.medoid, q_shape, L, max_iters, self.params.metric,
+                    use_pq,
+                )
             beams[key] = beam
         return beam
 
@@ -677,7 +686,7 @@ class VamanaGraph:
             ib = idx_all[s : s + batch]
             if ib.shape[0] < batch:
                 ib = torch.nn.functional.pad(ib, (0, batch - ib.shape[0]))
-            with device_cache.device_lock(self.device):
+            with device_cache.locked(self.device, "beam.run"):
                 if use_pq:
                     luts = build_luts(self.pq, qb, device=self.device)
                     beam = self._beam(data, adj, tuple(luts.shape), L, max_iters, True, masked=True)
@@ -752,7 +761,7 @@ class VamanaGraph:
         ids_t = torch.as_tensor(ids, device=self.device)
         max_iters = int(1.3 * p.L) + 8
         for s, cnt, qb in self._batches(new_vectors, batch):
-            with device_cache.device_lock(self.device):
+            with device_cache.locked(self.device):
                 beam = self._beam(vec_t, adj_t, tuple(qb.shape), p.L, max_iters, False)
                 pool_ids, _pd, vis_ids, _vd = beam.run(qb)
                 cand = torch.cat([pool_ids, vis_ids], dim=1)
@@ -893,7 +902,7 @@ def build_vamana(
         alpha = 1.0 if p_idx < passes - 1 else params.alpha
         for s in range(0, n, batch):
             # one thread drives the device at a time (executors share it)
-            with device_cache.device_lock(dev):
+            with device_cache.locked(dev):
                 if beam is None:  # reads vec_t / adj_t in place across batches
                     beam = _Beam(
                         vec_t, adj_t, n, graph.medoid, (batch, d), params.L, max_iters,

@@ -15,11 +15,13 @@ the default, and asking for it where it is absent raises.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.serving import metrics as spans
 
 
 def resolve_device(device) -> torch.device:
@@ -64,6 +66,40 @@ def device_lock(device) -> threading.Lock:
     key = str(torch.device(device))
     with _LOCKS_GUARD:
         return _LOCKS.setdefault(key, threading.Lock())
+
+
+def locked(device, body: Optional[str] = None):
+    """``device_lock(device)`` for a ``with`` block, as every site that
+    drives the card takes it.  While the span log is on
+    (``serving.metrics``), acquiring it is a ``device.lock_wait`` span and
+    the block, given ``body``, a span of that name; off, this is the lock
+    itself."""
+    lock = device_lock(device)
+    if not spans.tracing:
+        return lock
+    return _TracedLock(lock, body)
+
+
+class _TracedLock:
+    __slots__ = ("lock", "body", "_span")
+
+    def __init__(self, lock: threading.Lock, body: Optional[str]) -> None:
+        self.lock, self.body, self._span = lock, body, None
+
+    def __enter__(self):
+        with spans.span("device.lock_wait"):
+            self.lock.acquire()
+        if self.body is not None:
+            self._span = spans.span(self.body).start()
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        try:
+            if self._span is not None:
+                self._span.stop()
+        finally:
+            self.lock.release()
+        return False
 
 
 def cached_device_array(host_obj, attr: str, array, n: int, convert, device):

@@ -82,6 +82,7 @@ from repro_torch.runtime import planner
 from repro_torch.runtime.planner import PlanOp, ProbePlan
 from repro_torch.runtime.predicates import Predicate, parse_predicate, row_group_mask
 from repro_torch.runtime.scheduler import ExecutorPool, Scheduler
+from repro_torch.serving import metrics as spans
 from repro_torch.serving.cache import ShardProbeCache, query_digest
 from repro_torch.serving.metrics import MetricsRegistry
 
@@ -705,45 +706,47 @@ class Coordinator:
         ``include_tail=False`` disables the fresh-tail tier: rows appended
         since the index's base snapshot are silently dropped (the pre-fix
         behavior) and surface as ``ProbeReport.unindexed_rows`` instead."""
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        pred = self._coerce_filter(filter)
-        self.store.metrics.reset()
-        table = LakehouseTable(self.catalog, table_name)
-        if strategy == "scan":
-            # reads the snapshot's own file list — fresh by construction
-            return self._probe_scan(table, queries, k, snapshot_id, pred=pred)
-        meta, snap, puffin_path, reader = self._resolve_index(
-            table_name, snapshot_id, as_of_ms
-        )
-        full_tail = self._resolve_tail(snap)
-        tail = full_tail if include_tail else None
-        routing = decode_routing_blob(reader.read_first(ROUTING_BLOB_TYPE))
-        shard_blobs = reader.blobs_of_type(SHARD_BLOB_TYPE)
-        strategy = self._choose_strategy(strategy, routing, shard_blobs)
-        if strategy == "centroid":
-            report = self._probe_centroid(
-                table, reader, queries, k, n_probe, pred=pred,
-                puffin_path=puffin_path, tail=tail,
-            )
-        else:
-            report = self._probe_diskann(
-                table,
-                routing,
-                shard_blobs,
-                puffin_path,
-                queries,
-                k,
-                use_pq=use_pq,
-                L=L,
-                pred=pred,
-                zonemap=(
-                    self._read_zonemap(reader, puffin_path) if pred is not None else None
-                ),
-                tail=tail,
-                scan_dtype=scan_dtype,
-            )
-        self._apply_tail_report(report, snap, full_tail, served=tail is not None)
-        return report
+        with spans.batch("probe.batch"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            pred = self._coerce_filter(filter)
+            self.store.metrics.reset()
+            table = LakehouseTable(self.catalog, table_name)
+            if strategy == "scan":
+                # reads the snapshot's own file list — fresh by construction
+                return self._probe_scan(table, queries, k, snapshot_id, pred=pred)
+            with spans.span("probe.plan"):
+                meta, snap, puffin_path, reader = self._resolve_index(
+                    table_name, snapshot_id, as_of_ms
+                )
+                full_tail = self._resolve_tail(snap)
+                tail = full_tail if include_tail else None
+                routing = decode_routing_blob(reader.read_first(ROUTING_BLOB_TYPE))
+                shard_blobs = reader.blobs_of_type(SHARD_BLOB_TYPE)
+                strategy = self._choose_strategy(strategy, routing, shard_blobs)
+            if strategy == "centroid":
+                report = self._probe_centroid(
+                    table, reader, queries, k, n_probe, pred=pred,
+                    puffin_path=puffin_path, tail=tail,
+                )
+            else:
+                report = self._probe_diskann(
+                    table,
+                    routing,
+                    shard_blobs,
+                    puffin_path,
+                    queries,
+                    k,
+                    use_pq=use_pq,
+                    L=L,
+                    pred=pred,
+                    zonemap=(
+                        self._read_zonemap(reader, puffin_path) if pred is not None else None
+                    ),
+                    tail=tail,
+                    scan_dtype=scan_dtype,
+                )
+            self._apply_tail_report(report, snap, full_tail, served=tail is not None)
+            return report
 
     @staticmethod
     def _apply_tail_report(
@@ -938,86 +941,98 @@ class Coordinator:
         the predicates to build row masks); fresh-tail ops are re-planned
         against the CURRENT tail, since the tail may have grown or been
         compacted since the plan was captured.  Only the diskann strategy
-        is plannable."""
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        B = queries.shape[0]
-        preds = self._coerce_filters_batch(filter, B)
-        self.store.metrics.reset()
-        table = LakehouseTable(self.catalog, table_name)
-        if replay_plan is not None and strategy in ("scan", "centroid"):
-            raise ValueError(f"replay_plan is not supported for strategy={strategy!r}")
-        if strategy == "scan":
-            if preds is None or len(set(preds)) == 1:
-                report = self._probe_scan(
-                    table, queries, k, snapshot_id, pred=preds[0] if preds else None
+        is plannable.
+
+        Spans (``serving.metrics``, while its log is on): ``probe.batch``
+        (the call, under a new batch id; it ends with the hits on the
+        host), ``probe.plan`` (index resolution, the routing blob and the
+        strategy; on the diskann path also the routing and the tasks at
+        Stage A's start; host only), ``probe.stage_a`` (the shard wave,
+        which ends when every executor's results are on the host), then
+        ``probe.stage_b`` and ``probe.stage_c`` (``_rerank_and_merge``).
+        ``ProbeReport.stage_*_seconds`` are the three stage timers'
+        durations, whether the log is on or not."""
+        with spans.batch("probe.batch"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            B = queries.shape[0]
+            preds = self._coerce_filters_batch(filter, B)
+            self.store.metrics.reset()
+            table = LakehouseTable(self.catalog, table_name)
+            if replay_plan is not None and strategy in ("scan", "centroid"):
+                raise ValueError(f"replay_plan is not supported for strategy={strategy!r}")
+            if strategy == "scan":
+                if preds is None or len(set(preds)) == 1:
+                    report = self._probe_scan(
+                        table, queries, k, snapshot_id, pred=preds[0] if preds else None
+                    )
+                else:
+                    report = self._grouped_filtered(
+                        lambda q, p: self._probe_scan(table, q, k, snapshot_id, pred=p),
+                        queries,
+                        preds,
+                    )
+                report.batch_size = B
+                return report
+            with spans.span("probe.plan"):
+                meta, snap, puffin_path, reader = self._resolve_index(
+                    table_name, snapshot_id, as_of_ms
                 )
+                full_tail = self._resolve_tail(snap)
+                tail = full_tail if include_tail else None
+                routing = decode_routing_blob(reader.read_first(ROUTING_BLOB_TYPE))
+                shard_blobs = reader.blobs_of_type(SHARD_BLOB_TYPE)
+                strategy = self._choose_strategy(strategy, routing, shard_blobs)
+            if replay_plan is not None and strategy != "diskann":
+                raise ValueError(f"replay_plan is not supported for strategy={strategy!r}")
+            if strategy == "centroid":
+                if preds is None or len(set(preds)) == 1:
+                    report = self._probe_centroid_batch(
+                        table, reader, queries, k, n_probe,
+                        pred=preds[0] if preds else None, puffin_path=puffin_path,
+                        tail=tail,
+                    )
+                else:
+                    # per-group batches keep per-query file ownership, so mixed
+                    # filters still return exactly the sequential probes' hits
+                    report = self._grouped_filtered(
+                        lambda q, p: self._probe_centroid_batch(
+                            table, reader, q, k, n_probe, pred=p,
+                            puffin_path=puffin_path, tail=tail,
+                        ),
+                        queries,
+                        preds,
+                    )
             else:
-                report = self._grouped_filtered(
-                    lambda q, p: self._probe_scan(table, q, k, snapshot_id, pred=p),
+                report = self._probe_diskann_batch(
+                    table,
+                    routing,
+                    reader,
+                    puffin_path,
                     queries,
-                    preds,
-                )
-            report.batch_size = B
-            return report
-        meta, snap, puffin_path, reader = self._resolve_index(
-            table_name, snapshot_id, as_of_ms
-        )
-        full_tail = self._resolve_tail(snap)
-        tail = full_tail if include_tail else None
-        routing = decode_routing_blob(reader.read_first(ROUTING_BLOB_TYPE))
-        shard_blobs = reader.blobs_of_type(SHARD_BLOB_TYPE)
-        strategy = self._choose_strategy(strategy, routing, shard_blobs)
-        if replay_plan is not None and strategy != "diskann":
-            raise ValueError(f"replay_plan is not supported for strategy={strategy!r}")
-        if strategy == "centroid":
-            if preds is None or len(set(preds)) == 1:
-                report = self._probe_centroid_batch(
-                    table, reader, queries, k, n_probe,
-                    pred=preds[0] if preds else None, puffin_path=puffin_path,
-                    tail=tail,
-                )
-            else:
-                # per-group batches keep per-query file ownership, so mixed
-                # filters still return exactly the sequential probes' hits
-                report = self._grouped_filtered(
-                    lambda q, p: self._probe_centroid_batch(
-                        table, reader, q, k, n_probe, pred=p,
-                        puffin_path=puffin_path, tail=tail,
+                    k,
+                    use_pq=use_pq,
+                    L=L,
+                    n_route=n_route,
+                    preds=preds,
+                    zonemap=(
+                        self._read_zonemap(reader, puffin_path)
+                        if preds and replay_plan is None
+                        else None
                     ),
-                    queries,
-                    preds,
+                    tail=tail,
+                    scan_dtype=scan_dtype,
+                    oversample_override=oversample,
+                    replay_plan=replay_plan,
+                    cache_ctx=(
+                        (table_name, snap.snapshot_id)
+                        if self.probe_cache is not None
+                        else None
+                    ),
                 )
-        else:
-            report = self._probe_diskann_batch(
-                table,
-                routing,
-                reader,
-                puffin_path,
-                queries,
-                k,
-                use_pq=use_pq,
-                L=L,
-                n_route=n_route,
-                preds=preds,
-                zonemap=(
-                    self._read_zonemap(reader, puffin_path)
-                    if preds and replay_plan is None
-                    else None
-                ),
-                tail=tail,
-                scan_dtype=scan_dtype,
-                oversample_override=oversample,
-                replay_plan=replay_plan,
-                cache_ctx=(
-                    (table_name, snap.snapshot_id)
-                    if self.probe_cache is not None
-                    else None
-                ),
-            )
-        self._apply_tail_report(report, snap, full_tail, served=tail is not None)
-        report.batch_size = B
-        report.snapshot_id = snap.snapshot_id
-        return report
+            self._apply_tail_report(report, snap, full_tail, served=tail is not None)
+            report.batch_size = B
+            report.snapshot_id = snap.snapshot_id
+            return report
 
     def _coerce_filters_batch(
         self, filter: Optional[object], batch_size: int
@@ -1087,13 +1102,12 @@ class Coordinator:
         With ``pred`` this is the brute-force post-filter oracle: every
         passing row is exact-ranked, so the result is the true filtered
         top-k."""
-        t0 = time.time()
+        stage_b = spans.timed("probe.stage_b").start()
         files = [f.path for f in table.current_files(snapshot_id)]
         masks, _ = self._filtered_masks(table, files, pred)
-        report = self._rerank_and_merge(table, masks, queries, k, "l2")
+        report = self._rerank_and_merge(table, masks, queries, k, "l2", stage_b)
         report.strategy = "scan"
         report.files_scanned = len(files)
-        report.stage_b_seconds = time.time() - t0
         report.bytes_read = self.store.metrics.bytes_read
         report.filtered = pred is not None
         return report
@@ -1115,7 +1129,7 @@ class Coordinator:
         (when the index carries one) skips row groups that cannot match.
         Fresh-tail files (appended since the index's base snapshot — the
         centroid index has never seen them) join every query's file list."""
-        t0 = time.time()
+        stage_a = spans.timed("probe.stage_a").start()
         ci = CentroidIndex.from_blob(reader.read_first(CENTROID_BLOB_TYPE))
         pruned: List[str] = []
         per_query_files: List[List[str]] = []
@@ -1126,14 +1140,15 @@ class Coordinator:
         if tail is not None:
             pruned.extend(e.file_path for e in tail.entries)
         pruned = sorted(set(pruned))
-        stage_a = time.time() - t0
+        stage_a.stop()
+        stage_b = spans.timed("probe.stage_b").start()
         zonemap = self._read_zonemap(reader, puffin_path) if pred is not None else None
         masks, rg_pruned = self._filtered_masks(table, pruned, pred, zonemap)
-        report = self._rerank_and_merge(table, masks, queries, k, ci.metric)
+        report = self._rerank_and_merge(table, masks, queries, k, ci.metric, stage_b)
         report.strategy = "centroid"
         report.files_scanned = len(pruned)
         report.plan = self._tail_only_plan(tail, k, queries.shape[0])
-        report.stage_a_seconds = stage_a
+        report.stage_a_seconds = stage_a.seconds
         report.bytes_read = self.store.metrics.bytes_read
         report.filtered = pred is not None
         report.row_groups_pruned = rg_pruned
@@ -1156,7 +1171,7 @@ class Coordinator:
         result set identical to its sequential probe.  ``pred`` (shared by
         the whole batch on this path) restricts masks to passing rows.
         Fresh-tail files are owned by every query of the batch."""
-        t0 = time.time()
+        stage_a = spans.timed("probe.stage_a").start()
         ci = CentroidIndex.from_blob(reader.read_first(CENTROID_BLOB_TYPE))
         per_query_files = ci.probe_topk_batch(queries, n_probe)
         file_owners: Dict[str, set] = {}
@@ -1168,16 +1183,17 @@ class Coordinator:
             for e in tail.entries:
                 file_owners.setdefault(e.file_path, set()).update(everyone)
         pruned = sorted(file_owners)
-        stage_a = time.time() - t0
+        stage_a.stop()
+        stage_b = spans.timed("probe.stage_b").start()
         zonemap = self._read_zonemap(reader, puffin_path) if pred is not None else None
         masks, rg_pruned = self._filtered_masks(table, pruned, pred, zonemap)
         report = self._rerank_and_merge(
-            table, masks, queries, k, ci.metric, file_owners=file_owners
+            table, masks, queries, k, ci.metric, stage_b, file_owners=file_owners
         )
         report.strategy = "centroid"
         report.files_scanned = len(pruned)
         report.plan = self._tail_only_plan(tail, k, queries.shape[0])
-        report.stage_a_seconds = stage_a
+        report.stage_a_seconds = stage_a.seconds
         report.bytes_read = self.store.metrics.bytes_read
         report.filtered = pred is not None
         report.row_groups_pruned = rg_pruned
@@ -1242,7 +1258,8 @@ class Coordinator:
                 pruned_shards=tuple(pruned),
             )
         # ---- Stage A: parallel shard beam search -------------------------
-        t0 = time.time()
+        stage_a = spans.timed("probe.stage_a").start()
+        plan_span = spans.span("probe.plan").start()
         blob_by_index = {i: b for i, b in enumerate(PuffinReader(
             self.store.stat(puffin_path).size, self.store.range_reader(puffin_path)
         ).blobs)}
@@ -1280,12 +1297,13 @@ class Coordinator:
             metric=routing.metric,
             filters=[pred] * Q if pred is not None else None,
         )
+        plan_span.stop()
         results = self.scheduler.run_wave(tasks + tail_tasks)
         probe_results: List[F.ProbeResult] = results[: len(tasks)]
         tail_results: List[F.BatchProbeResult] = results[len(tasks):]
-        stage_a = time.time() - t0
+        stage_a.stop()
         # ---- merge + Stage B: exact rerank on row-group masks ---------------
-        t1 = time.time()
+        stage_b = spans.timed("probe.stage_b").start()
         keep = k * oversample
         merged: List[List[F.ProbeCandidate]] = []
         for qi in range(Q):
@@ -1306,14 +1324,13 @@ class Coordinator:
             fp: {rg: sorted(rows) for rg, rows in groups.items()}
             for fp, groups in masks.items()
         }
-        report = self._rerank_and_merge(table, masks_l, queries, k, routing.metric)
+        report = self._rerank_and_merge(table, masks_l, queries, k, routing.metric, stage_b)
         report.strategy = "diskann"
         report.served_by = [
             f"probe:{r.shard_id}@{r.executor_id}" for r in results
         ] + report.served_by
         report.files_scanned = len(masks_l)
-        report.stage_a_seconds = stage_a
-        report.stage_b_seconds = time.time() - t1 - report.stage_c_seconds
+        report.stage_a_seconds = stage_a.seconds
         report.shards_probed = len(tasks)
         report.cache_hits = sum(1 for r in probe_results if r.cache_hit)
         report.kernel_dispatches = sum(r.kernel_dispatches for r in results)
@@ -1458,7 +1475,8 @@ class Coordinator:
         if use_pq is None:
             use_pq = int(routing.params.get("pq_m", "0")) > 0
         L_eff = L or int(routing.params.get("L", "100"))
-        t0 = time.time()
+        stage_a = spans.timed("probe.stage_a").start()
+        plan_span = spans.span("probe.plan").start()
         # the already-open reader has the footer parsed — no re-read
         blob_by_index = dict(enumerate(reader.blobs))
         route = self._route_queries(routing, queries, n_route)
@@ -1597,6 +1615,7 @@ class Coordinator:
             metric=routing.metric,
             filters=preds,
         )
+        plan_span.stop()
         results: List[F.BatchProbeResult] = self.scheduler.run_coalesced_wave(
             tasks + tail_tasks
         )
@@ -1617,9 +1636,9 @@ class Coordinator:
                         snapshot_id=cache_ctx[1],
                         served_by=r.executor_id,
                     )
-        stage_a = time.time() - t0
+        stage_a.stop()
         # ---- merge + Stage B: exact rerank with per-row ownership ----------
-        t1 = time.time()
+        stage_b = spans.timed("probe.stage_b").start()
         keep = k * oversample
         merged: List[List[F.ProbeCandidate]] = []
         for qi in range(B):
@@ -1655,15 +1674,14 @@ class Coordinator:
             for fp, groups in masks.items()
         }
         report = self._rerank_and_merge(
-            table, masks_l, queries, k, routing.metric, row_owners=row_owners
+            table, masks_l, queries, k, routing.metric, stage_b, row_owners=row_owners
         )
         report.strategy = "diskann"
         report.served_by = [
             f"probe:{r.shard_id}@{r.executor_id}" for r in results
         ] + report.served_by
         report.files_scanned = len(masks_l)
-        report.stage_a_seconds = stage_a
-        report.stage_b_seconds = time.time() - t1 - report.stage_c_seconds
+        report.stage_a_seconds = stage_a.seconds
         report.shards_probed = len(probe_results)
         report.probe_fragments = len(probe_results)
         report.cache_hits = sum(1 for r in probe_results if r.cache_hit)
@@ -1711,10 +1729,17 @@ class Coordinator:
         queries: np.ndarray,
         k: int,
         metric: str,
+        stage_b: "spans.Span",
         file_owners: Optional[Dict[str, set]] = None,
         row_owners: Optional[Dict[str, Dict[int, Dict[int, set]]]] = None,
     ) -> ProbeReport:
         """Stage B (parallel rerank) + Stage C (ordered merge).
+
+        ``stage_b`` is the caller's started Stage-B timer (``probe.stage_b``:
+        its candidate merge, then this rerank wave, which ends at each
+        executor's ``.cpu()``); it stops when the wave is back, and Stage C
+        (``probe.stage_c``, host only) is timed from there.  The report's
+        ``stage_b_seconds`` / ``stage_c_seconds`` are the two spans'.
 
         ``file_owners`` / ``row_owners`` carry batched-probe ownership: each
         query's Stage-C merge sees only the rows it routed to, even though
@@ -1747,26 +1772,29 @@ class Coordinator:
                     ),
                 )
             )
-        results: List[F.RerankResult] = self.scheduler.run_wave(tasks) if tasks else []
+        try:
+            results: List[F.RerankResult] = self.scheduler.run_wave(tasks) if tasks else []
+        finally:
+            stage_b.stop()
         # Stage C: streaming loser-tree merge (here: heap merge per query)
-        t2 = time.time()
-        Q = queries.shape[0]
-        hits: List[List[ProbeHit]] = []
-        for qi in range(Q):
-            rows = []
-            for r in results:
-                rows.extend(r.rows[qi])
-            best = heapq.nsmallest(k, rows, key=lambda x: x.distance)
-            hits.append(
-                [ProbeHit(b.file_path, b.row_group, b.row_offset, b.distance) for b in best]
-            )
-        stage_c = time.time() - t2
+        with spans.timed("probe.stage_c") as stage_c:
+            Q = queries.shape[0]
+            hits: List[List[ProbeHit]] = []
+            for qi in range(Q):
+                rows = []
+                for r in results:
+                    rows.extend(r.rows[qi])
+                best = heapq.nsmallest(k, rows, key=lambda x: x.distance)
+                hits.append(
+                    [ProbeHit(b.file_path, b.row_group, b.row_offset, b.distance) for b in best]
+                )
         return ProbeReport(
             hits=hits,
             strategy="",
             files_scanned=0,
             bytes_read=0,
-            stage_c_seconds=stage_c,
+            stage_b_seconds=stage_b.seconds,
+            stage_c_seconds=stage_c.seconds,
             served_by=[f"rerank@{r.executor_id}" for r in results],
         )
 

@@ -41,6 +41,7 @@ from repro_torch.lakehouse.vparquet import VParquetReader
 from repro_torch.runtime import fragments as F
 from repro_torch.runtime import planner
 from repro_torch.runtime.predicates import row_group_mask
+from repro_torch.serving import metrics as spans
 
 
 class ExecutorDead(RuntimeError):
@@ -868,28 +869,30 @@ class Executor:
         return cands
 
     def _probe_shard(self, task: F.ProbeTaskInfo) -> F.ProbeResult:
-        t0 = time.time()
-        graph, locmap, hit = self._load_shard(
-            task.puffin_path, task.blob_offset, task.blob_length, task.blob_codec, task.cache_key
-        )
-        self._reset_task_tallies()
-        if task.predicate is not None:
-            dists, ids = self._filtered_search(
-                task, graph, locmap, task.queries, task.predicate, task.plan_op
+        with spans.span("shard.load"):
+            graph, locmap, hit = self._load_shard(
+                task.puffin_path, task.blob_offset, task.blob_length, task.blob_codec,
+                task.cache_key,
             )
-        else:
-            dists, ids = self._shard_search(task, graph)
+        self._reset_task_tallies()
+        with spans.span("shard.search"):
+            if task.predicate is not None:
+                dists, ids = self._filtered_search(
+                    task, graph, locmap, task.queries, task.predicate, task.plan_op
+                )
+            else:
+                dists, ids = self._shard_search(task, graph)
         mb_rows, mb_fb = self._task_mbeam()
         result = F.ProbeResult(
             shard_id=task.shard_id, executor_id=self.executor_id, cache_hit=hit,
             kernel_dispatches=self._task_dispatches(),
             masked_beam_rows=mb_rows, masked_beam_fallbacks=mb_fb,
         )
-        for qi in range(task.queries.shape[0]):
-            result.candidates.append(
-                self._row_candidates(graph, locmap, dists[qi], ids[qi], task.shard_id)
-            )
-        result.probe_seconds = time.time() - t0
+        with spans.span("shard.candidates"):
+            for qi in range(task.queries.shape[0]):
+                result.candidates.append(
+                    self._row_candidates(graph, locmap, dists[qi], ids[qi], task.shard_id)
+                )
         return result
 
     def _tail_scan(self, task: F.TailScanTaskInfo) -> F.BatchProbeResult:
@@ -898,7 +901,6 @@ class Executor:
         all-ones row, or the dedup'd plane when the batch carries
         predicates).  Sentinel slots are dropped before candidates leave
         the executor."""
-        t0 = time.time()
         result = F.BatchProbeResult(shard_id=task.tail_id, executor_id=self.executor_id)
         self._reset_task_tallies()
         qidx = np.asarray(task.query_index, np.int64)
@@ -908,7 +910,6 @@ class Executor:
         if n == 0:
             for qi in qidx:
                 result.candidates[int(qi)] = []
-            result.probe_seconds = time.time() - t0
             return result
         k_eff = min(max(1, task.k * task.oversample), n)
         all_rows = np.ones(n, bool)
@@ -950,7 +951,6 @@ class Executor:
                 if np.isfinite(dist) and vid >= 0
             ]
         result.kernel_dispatches = self._task_dispatches()
-        result.probe_seconds = time.time() - t0
         return result
 
     def _probe_shard_batch(self, task: F.BatchProbeTaskInfo) -> F.BatchProbeResult:
@@ -958,31 +958,39 @@ class Executor:
         query of the fragment in ONE masked-kernel call per shard, however
         many distinct predicates and whichever mix of exact and ADC flavors
         (the unified kernel).  Unfiltered fragments keep the batched beam
-        search, so their hits equal sequential ``probe`` calls."""
-        t0 = time.time()
-        graph, locmap, hit = self._load_shard(
-            task.puffin_path, task.blob_offset, task.blob_length, task.blob_codec, task.cache_key
-        )
+        search, so their hits equal sequential ``probe`` calls.
+
+        Spans (``serving.metrics``): ``shard.load`` (the L1 hit, or the
+        blob's read, decode and upload), ``shard.search`` (the beams, which
+        end at their ``.cpu()``; on a filtered fragment the whole plane,
+        candidates included) and ``shard.candidates`` (ids to table rows,
+        host only)."""
+        with spans.span("shard.load"):
+            graph, locmap, hit = self._load_shard(
+                task.puffin_path, task.blob_offset, task.blob_length, task.blob_codec,
+                task.cache_key,
+            )
         result = F.BatchProbeResult(
             shard_id=task.shard_id, executor_id=self.executor_id, cache_hit=hit
         )
         self._reset_task_tallies()
         qidx = np.asarray(task.query_index, np.int64)
         if not task.filters:
-            dists, ids = self._shard_search(task, graph)
-            for bi, qi in enumerate(qidx):
-                result.candidates[int(qi)] = self._row_candidates(
-                    graph, locmap, dists[bi], ids[bi], task.shard_id
-                )
-            result.probe_seconds = time.time() - t0
+            with spans.span("shard.search"):
+                dists, ids = self._shard_search(task, graph)
+            with spans.span("shard.candidates"):
+                for bi, qi in enumerate(qidx):
+                    result.candidates[int(qi)] = self._row_candidates(
+                        graph, locmap, dists[bi], ids[bi], task.shard_id
+                    )
             return result
-        if self.force_group_loop:
-            self._probe_groups(task, graph, locmap, result, qidx, range(len(qidx)))
-        else:
-            self._probe_mask_plane(task, graph, locmap, result, qidx)
+        with spans.span("shard.search"):
+            if self.force_group_loop:
+                self._probe_groups(task, graph, locmap, result, qidx, range(len(qidx)))
+            else:
+                self._probe_mask_plane(task, graph, locmap, result, qidx)
         result.kernel_dispatches = self._task_dispatches()
         result.masked_beam_rows, result.masked_beam_fallbacks = self._task_mbeam()
-        result.probe_seconds = time.time() - t0
         return result
 
     def _probe_groups(
@@ -1259,48 +1267,57 @@ class Executor:
         return short_rows
 
     def _rerank(self, task: F.RerankTaskInfo) -> F.RerankResult:
-        rows_flat: List[Tuple[str, int, int]] = []
-        # per flat row: None => every query owns it, else the owning set
-        owners_flat: List[Optional[set]] = []
+        """Stage B on this executor's files: read the masked rows
+        (``rerank.read``, host only), score the union of every query's rows
+        in one ``exact_distances`` call (``rerank.score``, ends at its
+        ``.cpu()``), then each query's owned rows and top ``keep``
+        (``rerank.select``, host only)."""
         vec_parts: List[np.ndarray] = []
-        for fpath, groups in task.masks.items():
-            reader = VParquetReader.from_store(self.store, fpath)
-            f_own = task.file_owners.get(fpath) if task.file_owners else None
-            r_own = task.row_owners.get(fpath) if task.row_owners else None
-            for rg_id, offsets in groups.items():
-                arr = reader.read_rows("vec", rg_id, offsets)
-                vec_parts.append(arr)
-                rg_own = r_own.get(rg_id) if r_own is not None else None
-                for off in offsets:
-                    rows_flat.append((fpath, rg_id, off))
-                    if rg_own is not None:
-                        owners_flat.append(rg_own.get(off, set()))
-                    else:
-                        owners_flat.append(f_own)
+        with spans.span("rerank.read"):
+            for fpath, groups in task.masks.items():
+                reader = VParquetReader.from_store(self.store, fpath)
+                for rg_id, offsets in groups.items():
+                    vec_parts.append(reader.read_rows("vec", rg_id, offsets))
         result = F.RerankResult(executor_id=self.executor_id)
         q = np.ascontiguousarray(task.queries, np.float32)
-        if not rows_flat:
+        if not any(len(v) for v in vec_parts):
             result.rows = [[] for _ in range(q.shape[0])]
             return result
         cands = np.concatenate(vec_parts)
         # the union of every query's rows is read and scored ONCE — a single
         # rerank_distances kernel call; ownership filters the (Q, N) matrix
-        d = ops.exact_distances(
-            to_device(q, self.device),
-            to_device(cands, self.device),
-            metric=task.metric,
-            backend="auto",
-        ).cpu().numpy()
-        for qi in range(q.shape[0]):
-            owned = [
-                ci for ci in range(len(rows_flat))
-                if owners_flat[ci] is None or qi in owners_flat[ci]
-            ]
-            near = np.argsort(d[qi, owned], kind="stable")[: task.keep]
-            owned = [owned[j] for j in near]
-            result.rows.append(
-                [F.RerankRow(*rows_flat[ci], float(d[qi, ci])) for ci in owned]
-            )
+        with spans.span("rerank.score"):
+            d = ops.exact_distances(
+                to_device(q, self.device),
+                to_device(cands, self.device),
+                metric=task.metric,
+                backend="auto",
+            ).cpu().numpy()
+        with spans.span("rerank.select"):
+            rows_flat: List[Tuple[str, int, int]] = []
+            # per flat row: None => every query owns it, else the owning set
+            owners_flat: List[Optional[set]] = []
+            for fpath, groups in task.masks.items():
+                f_own = task.file_owners.get(fpath) if task.file_owners else None
+                r_own = task.row_owners.get(fpath) if task.row_owners else None
+                for rg_id, offsets in groups.items():
+                    rg_own = r_own.get(rg_id) if r_own is not None else None
+                    for off in offsets:
+                        rows_flat.append((fpath, rg_id, off))
+                        if rg_own is not None:
+                            owners_flat.append(rg_own.get(off, set()))
+                        else:
+                            owners_flat.append(f_own)
+            for qi in range(q.shape[0]):
+                owned = [
+                    ci for ci in range(len(rows_flat))
+                    if owners_flat[ci] is None or qi in owners_flat[ci]
+                ]
+                near = np.argsort(d[qi, owned], kind="stable")[: task.keep]
+                owned = [owned[j] for j in near]
+                result.rows.append(
+                    [F.RerankRow(*rows_flat[ci], float(d[qi, ci])) for ci in owned]
+                )
         return result
 
     def _refresh_shard(self, task: F.RefreshTaskInfo) -> F.RefreshResult:

@@ -123,7 +123,6 @@ class ProbeResult:
     # per query: list of candidates
     candidates: List[List[ProbeCandidate]] = field(default_factory=list)
     cache_hit: bool = False
-    probe_seconds: float = 0.0
     # masked top-k kernel calls this task issued (observability for the
     # heterogeneous-filter coalescing win; 0 on pure beam paths)
     kernel_dispatches: int = 0
@@ -212,7 +211,6 @@ class BatchProbeResult:
     # original batch position -> candidates for that query
     candidates: Dict[int, List[ProbeCandidate]] = field(default_factory=dict)
     cache_hit: bool = False
-    probe_seconds: float = 0.0
     # masked top-k kernel calls this fragment cost: 1 per scoring flavor on
     # the mask-plane path, vs one per distinct predicate on the legacy
     # group loop — the coordinator sums these into

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional
 
 from repro_torch.runtime import fragments as F
 from repro_torch.runtime.executor import Executor, ExecutorDead, InjectedFailure
+from repro_torch.serving import metrics as spans
 from repro_torch.serving.leases import LeaseTable
 from repro_torch.serving.metrics import MetricsRegistry
 
@@ -145,7 +146,14 @@ class Scheduler:
 
         Raises RuntimeError if any task exhausts ``max_attempts`` or the
         executor pool dies entirely.
-        """
+
+        Spans (``serving.metrics``): ``scheduler.wave`` here, and
+        ``scheduler.task`` around each attempt in its worker thread, opened
+        under the wave so the executor's spans reach the caller's stage."""
+        with spans.span("scheduler.wave"):
+            return self._run_wave(tasks, spans.current())
+
+    def _run_wave(self, tasks: List[object], parent) -> List[object]:
         n = len(tasks)
         results: List[Optional[object]] = [None] * n
         done = [False] * n
@@ -165,7 +173,8 @@ class Scheduler:
 
         def run_one(idx: int, executor: Executor, speculative: bool, attempt_obj: list):
             try:
-                out = executor.handle(tasks[idx], wanted=lambda: start(attempt_obj[0]))
+                with spans.span("scheduler.task", parent):
+                    out = executor.handle(tasks[idx], wanted=lambda: start(attempt_obj[0]))
                 with lock:
                     if not done[idx]:
                         done[idx] = True

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.vamana import _Beam
-from repro_torch.kernels.device_cache import concrete_device, device_lock, resolve_device
+from repro_torch.kernels.device_cache import concrete_device, locked, resolve_device
 from repro_torch.models.sharding import NamedSharding, PartitionSpec, mesh_shape, place
 
 
@@ -183,7 +183,7 @@ def _probe_shards(index: "DeviceAnnIndex", q: torch.Tensor, *, k_local: int, L: 
     payload = index.payload if index.payload is not None else index.adjacency[:, :, 0]
     dists, pls = [], []
     for s in range(index.n_shards):
-        with device_lock(dev):
+        with locked(dev):
             beam = index._beam(s, tuple(q.shape), L, max_iters, metric)
             ids, d, _, _ = beam.run(q)
             order = torch.sort(d, dim=1, stable=True).indices[:, :k_local]

@@ -8,15 +8,32 @@ counters are a lock + int, histograms keep a bounded window of recent
 observations so per-tenant p50/p99 stay O(window) to compute and O(1) to
 record.
 
-Nothing here imports jax or the runtime — the registry is safe to use from
-any layer (scheduler, lease table, micro-batcher) without import cycles.
+Beside it, the process-wide **span log**: :func:`enable` turns it on,
+:func:`span` times a block of work on ``time.perf_counter_ns`` (the clock a
+``torch.profiler`` trace is lined up with), and :func:`drain` hands over
+what was recorded.  Off (the default), :func:`span` returns one shared
+no-op object after a single module-global check: no clock read, no
+allocation, no lock.  Its one counter, ``gc.pause_s``, sums the collector's
+pauses while the log is on.  :func:`timed` is the one exception: a stage
+timer the program reads whatever the log's state, which records a span
+only while the log is on.  Attributes are set on the open span with
+:meth:`Span.set` (the no-op's ``set`` does nothing), so a call site
+allocates nothing while the log is off.
+
+Nothing here imports jax or the runtime — the registry and the span log are
+safe to use from any layer (scheduler, lease table, micro-batcher, the
+kernels' device lock) without import cycles.
 """
 
 from __future__ import annotations
 
+import gc
+import itertools
 import threading
+import time
 from collections import deque
-from typing import Deque, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
 
 
 class Counter:
@@ -135,3 +152,185 @@ class MetricsRegistry:
             out[f"{k}.p50"] = h.percentile(50)
             out[f"{k}.p99"] = h.percentile(99)
         return out
+
+
+# -- the span log ----------------------------------------------------------------
+
+tracing = False  # the one flag every span site reads
+_log: List["Span"] = []  # finished spans, appended whole (atomic under the GIL)
+_tls = threading.local()  # .top: the innermost open span of the thread
+_batch_ids = itertools.count(1)
+_gc_start_ns = 0
+_gc_pause_ns = 0  # the collector's pauses since the last drain, every generation
+
+
+class Span:
+    """One timed block of work: ``name``, ``t0`` / ``t1`` on
+    ``perf_counter_ns``, the ``thread`` it ran on, its ``parent`` (the
+    innermost span open on the thread when it opened, or the one passed in
+    from another thread), the ``batch`` id it inherits, and ``attrs``."""
+
+    __slots__ = ("name", "t0", "t1", "thread", "parent", "batch", "attrs", "_record", "_prev")
+
+    def __init__(self, name: str, parent: Optional["Span"] = None, record: bool = True) -> None:
+        self.name = name
+        self.parent = parent
+        self.batch: Optional[int] = None
+        self.attrs: Dict[str, object] = {}
+        self.t0 = self.t1 = 0
+        self.thread = 0
+        self._record = record
+        self._prev: Optional[Span] = None
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1 - self.t0) / 1e9
+
+    def set(self, key: str, value) -> None:
+        self.attrs[key] = value
+
+    def start(self) -> "Span":
+        """Open the span (``with`` does this; ``start`` / ``stop`` serve a
+        stage that a callee ends)."""
+        if self._record:
+            self._prev = getattr(_tls, "top", None)
+            if self.parent is None:
+                self.parent = self._prev
+            if self.batch is None and self.parent is not None:
+                self.batch = self.parent.batch
+            self.thread = threading.get_ident()
+            _tls.top = self
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def stop(self) -> float:
+        """Close the span; its seconds."""
+        self.t1 = time.perf_counter_ns()
+        if self._record:
+            _tls.top = self._prev
+            _log.append(self)
+        return self.seconds
+
+    def __enter__(self) -> "Span":
+        return self.start()
+
+    def __exit__(self, et, ev, tb) -> bool:
+        self.stop()
+        return False
+
+    def __repr__(self) -> str:
+        return f"Span({self.name!r}, {self.seconds * 1e3:.3f} ms, batch={self.batch})"
+
+
+class _NoSpan:
+    """The span every site gets while the log is off: enters, sets and
+    exits without reading a clock or allocating."""
+
+    __slots__ = ()
+    seconds = 0.0
+
+    def set(self, key, value) -> None:
+        pass
+
+    def start(self) -> "_NoSpan":
+        return self
+
+    def stop(self) -> float:
+        return 0.0
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str, parent: Optional[Span] = None):
+    """A span named ``name`` while the log is on (``parent`` carries a span
+    across threads), else :data:`NO_SPAN`.  Use as ``with span(...) as s``."""
+    if not tracing:
+        return NO_SPAN
+    return Span(name, parent)
+
+
+def batch(name: str):
+    """:func:`span` that opens a new batch: it and every span under it,
+    across threads, carry the next batch id."""
+    if not tracing:
+        return NO_SPAN
+    s = Span(name)
+    s.batch = next(_batch_ids)
+    return s
+
+
+def timed(name: str) -> Span:
+    """A stage timer: always times its block (one ``perf_counter_ns`` pair,
+    ``.seconds``), and is recorded as a span while the log is on."""
+    return Span(name, record=tracing)
+
+
+def current() -> Optional[Span]:
+    """The innermost span open on this thread (None while the log is off),
+    to pass as another thread's ``parent``."""
+    if not tracing:
+        return None
+    return getattr(_tls, "top", None)
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: every collection's pause adds to the
+    ``gc.pause_s`` counter; a full collection (generation 2) is also a
+    ``gc.collect`` span.
+
+    It takes no lock: a collection can start inside any allocation, a
+    locked block included, and no other collection (so no other call of
+    this) runs until it ends."""
+    global _gc_start_ns, _gc_pause_ns
+    if phase == "start":
+        _gc_start_ns = time.perf_counter_ns()
+        return
+    t1 = time.perf_counter_ns()
+    gen = info.get("generation", 0)
+    _gc_pause_ns += t1 - _gc_start_ns
+    if gen == 2:
+        s = Span("gc.collect", getattr(_tls, "top", None), record=False)
+        s.t0, s.t1, s.thread = _gc_start_ns, t1, threading.get_ident()
+        s.batch = s.parent.batch if s.parent is not None else None
+        s.attrs = {"generation": gen}
+        _log.append(s)
+
+
+@dataclass
+class Drained:
+    """What :func:`drain` hands over: the finished spans in the order they
+    closed, and the counters (``gc.pause_s`` where a collection ran)."""
+
+    spans: List[Span] = field(default_factory=list)
+    counters: Dict[str, float] = field(default_factory=dict)
+
+
+def enable() -> None:
+    """Turn the span log on (and the collector's callback with it)."""
+    global tracing
+    if _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
+    tracing = True
+
+
+def disable() -> None:
+    """Turn the span log off; what it recorded waits for :func:`drain`."""
+    global tracing
+    tracing = False
+    while _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
+
+
+def drain() -> Drained:
+    """Everything recorded since the last drain, and an empty log."""
+    global _log, _gc_pause_ns
+    spans, _log = _log, []
+    pause_ns, _gc_pause_ns = _gc_pause_ns, 0
+    return Drained(spans, {"gc.pause_s": pause_ns / 1e9} if pause_ns else {})

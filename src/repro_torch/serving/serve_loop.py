@@ -60,6 +60,7 @@ from repro_torch.serving.admission import (
     ProbeParams,
     TenantPolicy,
 )
+from repro_torch.serving import metrics as spans
 from repro_torch.serving.metrics import MetricsRegistry
 
 
@@ -469,6 +470,14 @@ class ProbeMicroBatcher:
         return p
 
     def _flush(self, pending: list) -> None:
+        """Serve one drained batch: a ``batcher.flush`` span (see
+        ``serving.metrics``) that ends with every answer on the host, its
+        ``queries`` the submissions it sent to a probe and ``wait_s`` their
+        summed time in the queue, from submit to this flush's start."""
+        with spans.span("batcher.flush") as flush:
+            self._flush_pending(pending, flush)
+
+    def _flush_pending(self, pending: list, flush) -> None:
         now = time.monotonic()
         # deadline-aware: already-expired queries are rejected, not served
         # late; the survivors flush earliest-deadline-first (stable within
@@ -479,6 +488,9 @@ class ProbeMicroBatcher:
                 self._miss_deadline(sub, now)
             else:
                 live.append(sub)
+        if spans.tracing:
+            flush.set("queries", len(live))
+            flush.set("wait_s", sum(now - sub.submitted for sub in live))
         if not live:
             return
         live.sort(key=lambda s: s.deadline if s.deadline is not None else math.inf)
